@@ -1,4 +1,4 @@
-"""gsrast_tpu — a TPU-native differentiable 3D Gaussian splatting framework.
+"""gsrast_tpu — a differentiable 3D Gaussian splatting framework.
 
 Built from scratch in JAX/Pallas with the capabilities of the GSRast reference
 viewer (surveyed in SURVEY.md) plus the differentiable training and multi-host

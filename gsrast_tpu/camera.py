@@ -1,6 +1,6 @@
 """Cameras.
 
-TPU-native replacement for the reference camera stack
+The replacement for the reference camera stack
 (/root/reference/CameraBase.hpp:8-21, FirstPersonCamera.cpp:28-114): instead of
 a stateful first-person GLFW-driven object, a `Camera` is an immutable pytree
 carrying the world->camera view matrix plus intrinsics; helper constructors
@@ -25,12 +25,13 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from . import config as cfg
+from .utils.pytree import pytree_dataclass, static_field
 
 
-class Camera(struct.PyTreeNode):
+@pytree_dataclass
+class Camera:
     """An immutable camera: world->camera transform + pinhole intrinsics.
 
     `width`/`height` are static (pytree aux data) so image shapes stay static
@@ -40,10 +41,12 @@ class Camera(struct.PyTreeNode):
     view: jax.Array  # (4, 4) world -> camera (z forward, y down)
     fov_x: jax.Array  # scalar, radians
     fov_y: jax.Array  # scalar, radians
-    znear: jax.Array = struct.field(default_factory=lambda: jnp.float32(cfg.DEFAULT_NEAR))
-    zfar: jax.Array = struct.field(default_factory=lambda: jnp.float32(cfg.DEFAULT_FAR))
-    width: int = struct.field(pytree_node=False, default=cfg.DEFAULT_WIDTH)
-    height: int = struct.field(pytree_node=False, default=cfg.DEFAULT_HEIGHT)
+    znear: jax.Array = dataclasses.field(
+        default_factory=lambda: jnp.float32(cfg.DEFAULT_NEAR))
+    zfar: jax.Array = dataclasses.field(
+        default_factory=lambda: jnp.float32(cfg.DEFAULT_FAR))
+    width: int = static_field(default=cfg.DEFAULT_WIDTH)
+    height: int = static_field(default=cfg.DEFAULT_HEIGHT)
 
     # ---- derived quantities -------------------------------------------------
 
@@ -253,7 +256,7 @@ def auto_frame(bbox_min, bbox_max, width: int, height: int,
 
 def camera_rays(camera: Camera) -> Tuple[jax.Array, jax.Array]:
     """Per-pixel world-space ray origins and directions (for the ellipsoid
-    ray-trace debug mode — the TPU analog of splats/fragment.glsl:30-83)."""
+    ray-trace debug mode — the analog of splats/fragment.glsl:30-83)."""
     h, w = camera.height, camera.width
     xs = (jnp.arange(w, dtype=jnp.float32) + 0.5) / w * 2.0 - 1.0
     ys = (jnp.arange(h, dtype=jnp.float32) + 0.5) / h * 2.0 - 1.0

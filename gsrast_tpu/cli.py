@@ -9,6 +9,7 @@ SURVEY.md §5 calls for real CLI entry points instead: `render`, `info`,
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -65,11 +66,9 @@ def _camera(args, scene):
 
 
 def _backend(args) -> str:
-    import jax
+    from .render.api import default_backend
 
-    if args.backend:
-        return args.backend
-    return "pallas" if jax.default_backend() == "tpu" else "xla"
+    return args.backend or default_backend()
 
 
 def _auto_cfg(args, scene, camera, margin: float = 1.12):
@@ -111,7 +110,7 @@ def cmd_render(argv) -> None:
     t0 = time.perf_counter()
     if args.mode == "gaussians":
         # Product default = the flagship fused multi-tier path with
-        # auto-derived binning (VERDICT r4 #3) — no hand-set K knobs.
+        # auto-derived binning — no hand-set K knobs.
         rcfg = _auto_cfg(args, scene, camera)
         img = render(act, camera, rcfg).image
     elif args.mode == "ellipsoids":
@@ -201,6 +200,10 @@ def cmd_train(argv) -> None:
                     help="write the trained scene as .ply when done")
     ap.add_argument("--capacity", type=int, default=None,
                     help="scene capacity (free slots for densification)")
+    ap.add_argument("--densify-from", type=int, default=None,
+                    help="first densification step (default 500)")
+    ap.add_argument("--densify-every", type=int, default=None,
+                    help="steps between densifications (default 100)")
     _add_common(ap)
     args = ap.parse_args(argv)
     _maybe_distributed(args)
@@ -272,6 +275,10 @@ def cmd_train(argv) -> None:
     mn, mx = scene.bbox()
     extent = float(np.linalg.norm(np.asarray(mx) - np.asarray(mn))) or 1.0
     tc = TrainConfig()
+    if args.densify_from is not None:
+        tc = dataclasses.replace(tc, densify_from=args.densify_from)
+    if args.densify_every is not None:
+        tc = dataclasses.replace(tc, densify_every=args.densify_every)
     optimizer = make_optimizer(tc, extent)
     state = init_train_state(scene, optimizer)
     if args.resume:
@@ -359,20 +366,18 @@ def cmd_bench(argv) -> None:
     ap.add_argument("--backend", default=None, choices=["pallas", "xla"])
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--chain", type=int, default=1,
-                    help="steps per dispatch (steady-state timing; bench.py "
-                         "ships chain=8 — see BASELINE.md methodology note)")
+                    help="steps chained inside one dispatch (steady-state "
+                         "timing of a dependent step sequence)")
     ap.add_argument("--no-stages", action="store_true",
                     help="skip the per-stage table (headline only)")
     args = ap.parse_args(argv)
     _maybe_distributed(args)
 
-    import jax
-
     from . import benchmark
+    from .utils.compile_cache import enable_compile_cache
 
-    benchmark.enable_compile_cache()
-    backend = args.backend or (
-        "pallas" if jax.default_backend() == "tpu" else "xla")
+    enable_compile_cache()
+    backend = _backend(args)
 
     scene = camera = None
     if args.scene:

@@ -1,12 +1,9 @@
 """Global constants and render configuration.
 
-TPU-native analog of the reference's compile-time config
+The analog of the reference's compile-time config
 (/root/reference/Config.hpp:3-48): where the reference hardcodes window size,
 near/far planes, FOV and the 16x16 CUDA tile (Config.hpp:46-48, GSCuda.cu:20-21),
-we expose a frozen dataclass that is hashable (usable as a jit static arg) and
-pick a TPU-friendly tile shape: 8 x 128 pixels = exactly one float32
-(sublane, lane) vector register, so a whole tile's pixels are processed by a
-single VPU op.
+we expose a frozen dataclass that is hashable (usable as a jit static arg).
 """
 
 from __future__ import annotations
@@ -56,9 +53,10 @@ class RenderConfig:
     Hashable + frozen so it can be passed as a `jax.jit` static argument.
 
     Attributes:
-      tile_h/tile_w: pixel tile shape. Defaults (8, 128) = one f32 vreg on TPU
-        (the reference uses 16x16 for 256 CUDA threads, GSCuda.cu:20-21; the
-        tile shape is an internal detail, not observable in the output).
+      tile_h/tile_w: pixel tile shape. Default 16x16, the reference's tile
+        (GSCuda.cu:20-21); the pallas kernels need powers of two (see
+        render/pallas_blend.check_tile_shape). The tile shape is an internal
+        detail, not observable in the output.
       max_tiles_per_gaussian: static cap K2 on how many (owned) tiles one
         Gaussian may be binned into; size it to the scene's true per-Gaussian
         tile maximum (`scripts/scene_stats.py` reports it). Overflow is
@@ -70,18 +68,21 @@ class RenderConfig:
       heavy_fraction: static budget of tier-2 rows as a fraction of N.
       intersect_capacity_factor: static capacity of the (tile|depth) key list,
         as a multiple of N. The reference sizes this buffer exactly via a
-        device->host readback of the scanned total (GSCuda.cu:771-784); on TPU
-        we use a static capacity + overflow accounting instead.
+        device->host readback of the scanned total (GSCuda.cu:771-784); we
+        use a static capacity + overflow accounting instead.
       tile_chunk: how many tiles the XLA blend path processes per lax.map step
         (bounds peak memory).
       max_per_tile: static cap of intersections blended per tile in the XLA
         path (the Pallas path walks true ranges and has no such cap).
       backend: 'xla' (pure-JAX, differentiable by autodiff; the correctness
-        oracle path) or 'pallas' (hand-written TPU kernels with custom VJP).
+        oracle path) or 'pallas' (hand-written GPU kernels with custom VJP).
+        render/api.default_backend picks one from the platform.
+      interpret: run the pallas kernels in the Pallas interpreter (CPU tests
+        only; the kernels refuse it on a GPU).
     """
 
-    tile_h: int = 8
-    tile_w: int = 128
+    tile_h: int = 16
+    tile_w: int = 16
     max_tiles_per_gaussian: int = 32
     # Multi-tier fused binning (r4): when non-empty, the pallas path uses
     # ops/binning.plan_tiers + the fused sort-pack instead of the two-tier
@@ -92,9 +93,9 @@ class RenderConfig:
     # prefixes -> no holes in any Gaussian's tile enumeration). A first-entry
     # frac >= 1.0 covers every Gaussian; frac < 1 budgets tier 0 itself
     # (used by the tile-sharded path; drops counted). Sizes the sort volume
-    # near the TRUE intersection count instead of K*N: lax.sort cost on TPU
-    # is row-count-bound (BASELINE.md), so this is the binning throughput
-    # knob. () = legacy two-tier grid.
+    # near the TRUE intersection count instead of K*N: sort cost follows the
+    # row count, so this is the binning throughput knob. () = legacy
+    # two-tier grid.
     tiers: Tuple[Tuple[int, float], ...] = ()
     base_tiles_per_gaussian: int = 8
     heavy_fraction: float = 0.125
@@ -102,6 +103,7 @@ class RenderConfig:
     tile_chunk: int = 16
     max_per_tile: int = 1024
     backend: str = "xla"
+    interpret: bool = False
     sh_degree: int = 3
     background: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     dtype: str = "float32"
@@ -125,5 +127,5 @@ class RenderConfig:
 
     def capacity(self, num_gaussians: int) -> int:
         cap = int(num_gaussians * self.intersect_capacity_factor)
-        # Round up to a lane multiple for clean TPU layouts.
+        # Round up to a multiple of 128.
         return max(128, -(-cap // 128) * 128)

@@ -1,9 +1,9 @@
 """Tile binning: duplicate-with-keys, global sort, tile range extraction.
 
-TPU-native replacement for the reference's binning pipeline
+The replacement for the reference's binning pipeline
 (/root/reference/apps/gsrast/gscuda/GSCuda.cu:422-538, 771-801):
 
-  reference (CUDA)                        this module (XLA on TPU)
+  reference (CUDA)                        this module (XLA)
   --------------------------------        --------------------------------
   cub InclusiveSum(tilesTouched)          (folded into the sort below)
   numRendered readback sizes buffer       static capacity + overflow counters
@@ -25,18 +25,15 @@ TPU-native replacement for the reference's binning pipeline
                                           sort, run lazily ONLY when
                                           differentiating) so cotangents
                                           route back to (n, k) slots with a
-                                          GATHER + K-sum — no TPU scatter
+                                          GATHER + K-sum — no scatter
                                           anywhere in the training step
 
-Why a static (N, K) grid and not a compacted variable-length expansion
-(measured on TPU v5e, r3): TPU scatters serialize (~50M updates/s), random
-gathers run at ~100M rows/s, `jnp.searchsorted` at large query counts runs at
-~5M queries/s, while `lax.sort` moves ~350M operand-elements/s. The grid
-builds every key ELEMENTWISE from per-Gaussian arrays (no gathers at all) and
-lets one sort both compact (sentinels sink past the capacity truncation) and
-order. A searchsorted-based expansion sized by the true intersection count
-was tried and was 10x slower at the binning stage (1.75s vs ~150ms at
-1M/1080p) — the binary search alone dominates. K is a *counted* forward cap
+Why a static (N, K) grid and not a compacted variable-length expansion: the
+grid builds every key ELEMENTWISE from per-Gaussian arrays (no scatters and
+no gathers) and lets one sort both compact (sentinels sink past the capacity
+truncation) and order, where an expansion needs a binary search or a
+scatter per slot. (Both designs were chosen on the previous accelerator;
+ROADMAP Queue 1 re-measures them on the GPU.) K is a *counted* forward cap
 (overflow_tile_cap, no silent drops); callers size it per scene
 (RenderConfig.max_tiles_per_gaussian; the bench scene's true max is 16).
 
@@ -93,10 +90,9 @@ def expand_intersections(counts: jax.Array, capacity: int):
     within-gaussian ordinal k) via one vectorized binary search — the
     duplicateWithKeys analog (GSCuda.cu:422-475) without a scatter.
 
-    Exact (no per-Gaussian cap), but `searchsorted` throughput on TPU
-    (~5M queries/s measured) makes it CPU/small-scale only: the sharded
-    paths' routing (tests, virtual meshes) use it; the single-chip hot path
-    uses the elementwise (N, K) grid in build_binning instead.
+    Exact (no per-Gaussian cap), but a binary search per slot: the
+    legacy primitive-sharded routing (tiers=()) uses it; the single-device
+    hot path uses the elementwise slot grids instead.
 
     Returns (i (C,), k (C,), offsets (N,), total scalar)."""
     offsets = jnp.cumsum(counts) - counts  # exclusive scan, (N,)
@@ -163,44 +159,19 @@ def tier_dims(n: int, tiers) -> tuple:
     return tuple(dims), off
 
 
-def shard_tiers(tiers, n_dev: int, headroom: float = 2.0) -> tuple:
-    """Per-device tier spec for tile sharding: with interleaved row ownership
-    each device owns ~1/D of every Gaussian's tile rows, so per-device counts
-    shrink ~D-fold — tier widths divide by D (ceil, with `headroom` on the
-    last tier for row-quantization skew: a 2-row rect on 8 devices still
-    gives 2 devices a full row each) and budget fractions keep their global
-    values (frac_d(count_d > k/D) ~= frac(count > k)). Tier 0 KEEPS its full
-    budget (frac forced >= 1.0 below): with interleaved rows nearly every
-    visible gaussian still owns >= 1 tile on every device, and an r4
-    experiment that budgeted it to 0.9 dropped real work. (`tier_dims` still
-    supports a budgeted tier 0 with frac < 1 for callers that want one.)
-    Collapsed tiers (same k after division) merge, keeping the largest frac.
-    Drops are counted by plan_tiers, never silent."""
+def shard_tiers(tiers, n_dev: int) -> tuple:
+    """Per-device tier spec for tile sharding: the single-device widths and
+    budgets, with tier 0 taking every Gaussian a device receives. A device
+    owns a subset of each Gaussian's tile rows, so no Gaussian needs more
+    slots on one device than on all of them together; a Gaussian whose rect
+    spans fewer rows than there are devices keeps its whole count on the
+    device that owns its rows, so the widths cannot shrink with the device
+    count. Per-device sort volume is therefore that of one device. Drops are
+    counted by plan_tiers, never silent."""
     if n_dev <= 1:
         return tuple(tiers)
-    out = []
-    for i, (k, f) in enumerate(tiers):
-        kd = -(-k // n_dev)
-        if i == len(tiers) - 1:
-            kd = max(kd, min(k, int(-(-k * headroom // n_dev))))
-        if i == 0:
-            # Tier 0 keeps its full budget: at high D nearly every visible
-            # gaussian still owns >= 1 tile on every device (interleaved
-            # rows), so trimming it drops REAL work (r4: a 0.9 heuristic
-            # cost 5k counted tiles at dryrun scale). The per-device win
-            # comes from the width scaling above, not from starving tier 0.
-            f = max(f, 1.0)
-        if out and out[-1][0] >= kd:
-            pass  # collapsed into the earlier tier; keep its frac
-        else:
-            out.append((kd, f))
-    # re-enforce ascending ks and non-increasing fracs
-    fixed = []
-    for k, f in out:
-        if fixed and f > fixed[-1][1] and len(fixed) > 1:
-            f = fixed[-1][1]
-        fixed.append((k, f))
-    return tuple(fixed)
+    return tuple((k, max(f, 1.0) if i == 0 else f)
+                 for i, (k, f) in enumerate(tiers))
 
 
 def auto_tiers(counts, margin: float = 1.12, k0_max: int = 4,
@@ -210,7 +181,7 @@ def auto_tiers(counts, margin: float = 1.12, k0_max: int = 4,
     pass). Minimizes total slot volume S = sum_j w_j * B_j over tier cut
     points by shortest path on the candidate k grid, with `margin` headroom
     on every budget so skewed views don't overflow. Replaces the hand-picked
-    per-scene knobs VERDICT r3 flagged (benchmark.py:92-96)."""
+    per-scene knobs."""
     import numpy as np
 
     counts = np.asarray(counts)
@@ -269,8 +240,8 @@ def plan_tiers(
     Same job as build_binning's two-tier grid (duplicateWithKeys,
     GSCuda.cu:422-475) but with len(cfg.tiers) residual tiers over ONE
     count-descending ranking of the gaussians, sizing the total slot count S
-    near the true intersection count (the sort and the VJP's routing sort are
-    row-count-bound on TPU). Returns only structure — the feature payloads
+    near the true intersection count (the sort and the VJP's routing sort
+    cost follows the row count). Returns only structure — the feature payloads
     ride the big sort itself (render/pallas_pipeline.fused_pack).
 
     `dest_rows`/`n_dest` (r5): primitive-sharded routing mode. Tile keys
@@ -278,8 +249,7 @@ def plan_tiers(
     tile on that device` (contiguous row ownership, `dest_rows` rows per
     device), so the primitive-sharded exchange groups slots by destination
     device AND orders them with the SAME one sort — replacing the
-    searchsorted expansion the repo's own measurements rate ~5M queries/s
-    (VERDICT r4 #5). Sentinel = n_dest << ltile_bits."""
+    searchsorted expansion. Sentinel = n_dest << ltile_bits."""
     tiers = render_cfg.tiers
     assert tiers, "plan_tiers requires cfg.tiers"
     if dest_rows is not None:
@@ -290,7 +260,7 @@ def plan_tiers(
             f"{n_dest} devices x {ltile_bits} tile bits overflow int32")
     # The f32-reciprocal floor trick below needs the f32 relative error
     # (~1.2e-7) to stay under the 1/(2*rw) floor-boundary margin:
-    # k_last * grid_w must stay well below ~4e6 (ADVICE r4). Today's largest
+    # k_last * grid_w must stay well below ~4e6. Today's largest
     # configs (4K at 8x64: k_last~16k x grid_w 60) hold with ~4x margin.
     assert tiers[-1][0] * grid_w < 4_000_000, (
         f"k_last={tiers[-1][0]} x grid_w={grid_w} exceeds the f32 "
@@ -506,9 +476,8 @@ def build_binning(
     # dropped — every backend's blend would skip all its pixels anyway
     # (GSCuda.cu:645-649). Applied to the TIER-2 grid only: that is where
     # the big rects (and so the box-vs-ellipse waste) live, and the tier-1
-    # grid is 8x larger — culling it cost more in elementwise math than the
-    # dropped slots saved downstream (measured r3: +36 ms binning for
-    # -16 ms blend at 1M/1080p).
+    # grid is 8x larger — culling it costs more elementwise math than the
+    # dropped slots save downstream.
     A, B, Cc = prep.conic[..., 0], prep.conic[..., 1], prep.conic[..., 2]
     lam_min = 0.5 * (A + Cc) - jnp.sqrt(
         jnp.maximum(0.25 * (A - Cc) ** 2 + B * B, 0.0)

@@ -54,9 +54,9 @@ def compute_cov3d(scale: jax.Array, quat: jax.Array) -> jax.Array:
     (..., 6): [xx, xy, xz, yy, yz, zz] (reference GSCuda.cu:168-195 stores the
     same 6 floats).
 
-    Expanded to per-channel elementwise formulas: batched (N, 3, 3) matmuls
-    pad each tiny operand to an MXU tile on TPU (~10x slower at N=1M); the
-    expansion is pure VPU work and exactly f32 (no bf16 matmul pass).
+    Expanded to per-channel elementwise formulas: no batched (N, 3, 3)
+    matmuls of tiny operands, and exact f32 (no reduced-precision matmul
+    pass).
     """
     w, x, y, z = quat[..., 0], quat[..., 1], quat[..., 2], quat[..., 3]
     r00 = 1.0 - 2.0 * (y * y + z * z)
@@ -133,8 +133,8 @@ def compute_cov2d(
     inv_z2 = inv_z * inv_z
     # T = J @ W where J is the (2, 3) perspective Jacobian
     # [[fx/z, 0, -fx tx/z^2], [0, fy/z, -fy ty/z^2]] (GSCuda.cu:212-217) and
-    # W = view_rot. Expanded per-channel: batched tiny matmuls pad to MXU
-    # tiles on TPU; this is pure VPU work (W entries are scalars).
+    # W = view_rot. Expanded per-channel: elementwise work with scalar W
+    # entries instead of batched tiny matmuls.
     w00, w01, w02 = view_rot[0, 0], view_rot[0, 1], view_rot[0, 2]
     w10, w11, w12 = view_rot[1, 0], view_rot[1, 1], view_rot[1, 2]
     w20, w21, w22 = view_rot[2, 0], view_rot[2, 1], view_rot[2, 2]

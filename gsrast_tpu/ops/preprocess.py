@@ -1,6 +1,6 @@
 """Batched Gaussian preprocessing: cull + project + shade.
 
-The TPU-native analog of the reference preprocess kernel
+The analog of the reference preprocess kernel
 (/root/reference/apps/gsrast/gscuda/GSCuda.cu:261-375): one fused, batched,
 fully-differentiable XLA computation over all N Gaussians (the reference runs
 one CUDA thread per Gaussian; here XLA vectorizes over the N axis on the VPU).
@@ -89,9 +89,7 @@ def preprocess(
     # reference's (3 sigma)^2, GSCuda.cu:337-341), whose tight axis-aligned
     # bound is +-sqrt(c * Sigma_xx) by +-sqrt(c * Sigma_yy). The reference's
     # circular radius 3 sqrt(lambda_max) over-covers both axes — severely so
-    # for the elongated splats trained scenes are full of (r5; VERDICT r4
-    # #2: trained-statistics scenes ran 3-24x slower than random, with mean
-    # ~19 tiles/gaussian mostly box-vs-ellipse waste).
+    # for the elongated splats trained scenes are full of.
     # 2% margin on the threshold (same headroom as binning.slot_keep): the
     # dropped pixels are provably below ALPHA_MIN even under f32 rounding.
     op_act = gaussians.opacities

@@ -1,7 +1,7 @@
 """Device mesh construction and process bootstrap.
 
 The reference is single-process/single-GPU (SURVEY.md §2.5 "Ground truth: the
-reference has none"); this module introduces the mesh the TPU build shards
+reference has none"); this module introduces the mesh the framework shards
 over. Axes:
   * "data"  — camera/image batch (training DP; grads psum over it)
   * "tiles" — image-space tile sharding (the renderer's SP analog: the

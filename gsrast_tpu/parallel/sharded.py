@@ -4,11 +4,12 @@ The parallelism design from SURVEY.md §2.5, replacing nothing in the
 reference (it is strictly single-GPU) but required by the north star:
 
   * Tile sharding ("SP"): the 16x16-tile grid of the reference
-    (GSCuda.cu:731-732) generalizes to a set of 8x128 tiles per device.
+    (GSCuda.cu:731-732) generalizes to a set of tiles per device.
     Every device preprocesses all Gaussians (cheap, embarrassingly parallel
-    over N), bins ONLY its own tiles (local sort, ~1/D of the keys — the
-    global radix sort of GSCuda.cu:791-797 becomes D independent local
-    sorts), blends its tiles, and the image is the reassembly — no
+    over N), bins ONLY its own tiles (a local sort whose live keys are ~1/D
+    of the intersections, though its slot grid keeps the single-device
+    volume — ops/binning.shard_tiers; the global radix sort of
+    GSCuda.cu:791-797 becomes D independent local sorts), blends its tiles, and the image is the reassembly — no
     communication in the forward pass at all; XLA inserts the psum of
     parameter gradients in the backward (replicated-in -> psum-of-cotangents).
     Ownership is BY TILE ROW, interleaved round-robin (device d owns rows
@@ -42,7 +43,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from .. import config as cfg
 from ..camera import Camera
@@ -53,7 +53,6 @@ from ..render.dense import RenderOutput
 from ..render.tiled import blend_tiles_xla, blend_sorted_xla, untile
 from ..render.pallas_pipeline import (
     _blend,
-    _use_interpret,
     feature_rows,
     fused_pack,
     pack_features,
@@ -97,7 +96,7 @@ def _blend_local(prep, binning, grid_h, grid_w, render_cfg, num_local_rows,
         )
         rgb, ft, nc = _blend(
             feat_packed, binning.tile_starts, tile_map, grid_h, grid_w,
-            render_cfg.tile_h, render_cfg.tile_w, _use_interpret(), tpd,
+            render_cfg.tile_h, render_cfg.tile_w, render_cfg.interpret, tpd,
         )
         background = jnp.asarray(render_cfg.background, jnp.float32)
         rgb = rgb + ft[:, None, :] * background[None, :, None]
@@ -113,9 +112,9 @@ def _blend_local(prep, binning, grid_h, grid_w, render_cfg, num_local_rows,
 def _sharded_prep(g_full: ActivatedGaussians, camera, render_cfg, n_dev: int,
                   axis: str):
     """Preprocess 1/D of the gaussians on each device, then all_gather the
-    per-gaussian screen state. Fixes VERDICT r3 weak #2's 'every device
-    preprocesses all N': per-device preprocess cost is N/D, the all_gather
-    moves ~N*60B over ICI, and its AD transpose is the reduce-scatter of
+    per-gaussian screen state, so no device preprocesses all N:
+    per-device preprocess cost is N/D, the all_gather
+    moves ~N*60B between devices, and its AD transpose is the reduce-scatter of
     per-gaussian cotangents (parameter grads then psum once, as before).
     Requires N % n_dev == 0 (pad_gaussians)."""
     d = jax.lax.axis_index(axis)
@@ -132,16 +131,15 @@ def _relevance_exchange(g_full: ActivatedGaussians, camera, render_cfg,
                         n_dev: int, axis: str, rpd: int, interleave: bool,
                         send_capacity: Optional[int] = None):
     """Preprocess 1/D of the gaussians per device, then route each one to
-    ONLY the devices whose owned tile rows its rect intersects (r5, VERDICT
-    r4 #7): replaces `_sharded_prep`'s all_gather of the FULL per-gaussian
+    ONLY the devices whose owned tile rows its rect intersects: replaces `_sharded_prep`'s all_gather of the FULL per-gaussian
     state (~N x 60 B per device per camera) with an all_to_all whose volume
     is the per-device RELEVANT set (sum_g min(rect_rows_g, D) / D rows —
     most splats span 1-3 tile rows, so this falls well below N and shrinks
     with D). Invisible gaussians are dropped before the exchange.
 
     Because the plan then runs over c_recv rows instead of N, the N-row
-    count-ranking sort SCALING_r04 flagged as the per-device Amdahl term
-    (178 -> 605 ms, D=1 -> 8) shrinks to the relevant set too. (A variant
+    count-ranking sort, a per-device Amdahl term, shrinks to the relevant
+    set too. (A variant
     that pre-ranked the blocks in the exchange and skipped the plan's
     ranking sort entirely was tried and reverted: approximate rank
     misplacement at tier-budget boundaries dropped real tiles on skewed
@@ -242,7 +240,7 @@ def _relevance_exchange(g_full: ActivatedGaussians, camera, render_cfg,
 def _local_tiles_fused(prep, render_cfg, cfg_d, grid_h, grid_w, rpd, row0,
                        row_stride, backend, ovf_extra=None):
     """This device's tiles via the fused multi-tier path (cfg_d carries the
-    device-scaled tier spec from shard_tiers). Returns
+    per-device tier spec from shard_tiers). Returns
     (tiles_rgb (T,P,3), ft, nc, stats_vec)."""
     tpd = rpd * grid_w
     n = prep.depth.shape[0]
@@ -257,22 +255,21 @@ def _local_tiles_fused(prep, render_cfg, cfg_d, grid_h, grid_w, rpd, row0,
                               jnp.asarray(row_stride, jnp.int32)])
         rgb, ft, nc = _blend(
             feat_packed, tile_starts, tile_map, grid_h, grid_w,
-            render_cfg.tile_h, render_cfg.tile_w, _use_interpret(), tpd)
+            render_cfg.tile_h, render_cfg.tile_w, render_cfg.interpret, tpd)
         background = jnp.asarray(render_cfg.background, jnp.float32)
         rgb = rgb + ft[:, None, :] * background[None, :, None]
         tiles_rgb, ovf_tile = jnp.moveaxis(rgb, 1, 2), jnp.int32(0)
     else:
-        # Oracle branch: same keys, same stable order (2-key stable sort's
-        # tie-break is input order for both paths).
+        # Oracle branch: the same (tile, depth, gaussian id) order.
         tile, _sd, sgauss = jax.lax.sort(
             (plan.tile_key, plan.depth_key, plan.gauss), dimension=0,
-            num_keys=2, is_stable=True)
+            num_keys=3, is_stable=True)
         tile_starts = jnp.searchsorted(
             tile, jnp.arange(tpd + 1, dtype=jnp.int32), side="left"
         ).astype(jnp.int32)
         binning = binning_ops.Binning(
             # sorted_slot: not the real sort permutation on this path;
-            # blend_tiles_xla never reads it (ADVICE r4).
+            # blend_tiles_xla never reads it.
             sorted_tile=tile, sorted_gauss=sgauss,
             sorted_slot=jnp.zeros((0,), jnp.int32),
             heavy_idx=jnp.zeros((0,), jnp.int32), tile_starts=tile_starts,
@@ -319,15 +316,11 @@ def render_tile_sharded(
     rpd = _rows_per_device(grid_h, n_dev)
     row_stride = n_dev if interleave else 1
     if render_cfg.tiers:
-        # Fused multi-tier path (r4): sharded preprocess, and per-device
-        # tier widths/budgets scaled ~1/D — per-device sort volume actually
-        # shrinks with D (VERDICT r3 weak #2).
+        # Fused multi-tier path (r4): sharded preprocess; each device plans
+        # its own tiles with the single-device tier widths (shard_tiers).
         gaussians = pad_gaussians(gaussians, n_dev)
         n_pad = gaussians.means.shape[0]
-        # Tier widths scale ~1/D only under interleaved row ownership;
-        # contiguous ownership can hand a device a gaussian's whole rect.
-        tiers_d = binning_ops.shard_tiers(
-            render_cfg.tiers, n_dev if interleave else 1)
+        tiers_d = binning_ops.shard_tiers(render_cfg.tiers, n_dev)
         use_exchange = prep_exchange and n_dev > 1
         if use_exchange:
             nl = n_pad // n_dev
@@ -384,12 +377,12 @@ def render_tile_sharded(
         return tiles_rgb, final_t, n_contrib.astype(jnp.int32), stats
 
     in_spec = jax.tree.map(lambda _: P(), gaussians)
-    tiles_rgb, final_t, n_contrib, stats = shard_map(
+    tiles_rgb, final_t, n_contrib, stats = jax.shard_map(
         shard_fn,
         mesh=mesh,
         in_specs=(in_spec,),
         out_specs=(P(TILE_AXIS), P(TILE_AXIS), P(TILE_AXIS), P(TILE_AXIS)),
-        check_rep=False,
+        check_vma=False,
     )(gaussians)
 
     perm = _tile_perm(grid_h, grid_w, n_dev, rpd, interleave)
@@ -427,8 +420,8 @@ def render_tile_sharded(
 @jax.custom_vjp
 def _permute_rows(x, perm, inv_perm):
     """x[perm] with a gather-only VJP: the cotangent routes back through the
-    inverse permutation (TPU scatters serialize; same trick as the binning's
-    inv_pos). Requires perm to be a bijection on range(len(x))."""
+    inverse permutation (a gather instead of a scatter; same trick as the
+    binning's inv_pos). Requires perm to be a bijection on range(len(x))."""
     return x[perm]
 
 
@@ -514,11 +507,10 @@ def render_primitive_sharded(
 
         # --- 2. intersection slots with routing keys (structure: no grad) --
         if render_cfg.tiers:
-            # r5 (VERDICT r4 #5): the multi-tier slot grid with
+            # r5: the multi-tier slot grid with
             # DEST-PREFIXED route keys — the same elementwise grid + ONE
-            # 2-key sort that makes the single-chip fused path TPU-speed,
-            # replacing the searchsorted expansion (~5M queries/s by the
-            # repo's own measurement, ~1 s of binning per device at 1M+).
+            # 2-key sort as the single-chip fused path, replacing the
+            # searchsorted expansion.
             plan = binning_ops.plan_tiers(
                 sprep, grid_h, grid_w, render_cfg, dest_rows=rpd,
                 n_dest=n_dev)
@@ -611,15 +603,13 @@ def render_primitive_sharded(
         row_lo = d * rpd
 
         if backend == "pallas":
-            feat_packed = pack_sorted_features(
-                (s_feat * live[:, None]).T, sorted_ltile
-            )
+            feat_packed = pack_sorted_features((s_feat * live[:, None]).T)
             tile_map = jnp.stack(
                 [row_lo.astype(jnp.int32), jnp.int32(1)]
             )
             rgb, ft, nc = _blend(
                 feat_packed, tile_starts, tile_map, grid_h, grid_w,
-                render_cfg.tile_h, render_cfg.tile_w, _use_interpret(), tpd,
+                render_cfg.tile_h, render_cfg.tile_w, render_cfg.interpret, tpd,
             )
             background = jnp.asarray(render_cfg.background, jnp.float32)
             rgb = rgb + ft[:, None, :] * background[None, :, None]
@@ -643,12 +633,12 @@ def render_primitive_sharded(
         return rgb, ft, nc.astype(jnp.int32), stats
 
     in_spec = jax.tree.map(lambda _: P(TILE_AXIS), gaussians)
-    tiles_rgb, final_t, n_contrib, stats = shard_map(
+    tiles_rgb, final_t, n_contrib, stats = jax.shard_map(
         shard_fn,
         mesh=mesh,
         in_specs=(in_spec,),
         out_specs=(P(TILE_AXIS), P(TILE_AXIS), P(TILE_AXIS), P(TILE_AXIS)),
-        check_rep=False,
+        check_vma=False,
     )(gaussians)
 
     perm = _tile_perm(grid_h, grid_w, n_dev, rpd, interleave=False)
@@ -714,17 +704,12 @@ def make_sharded_train_step(
         over the "tiles" axis), then an all_gather over "tiles" assembles the
         full image for the loss (SSIM crosses tile borders, so the loss needs
         the whole image); the all_gather's AD transpose is the reduce-scatter
-        of pixel cotangents. Comm/compute overlap is delegated to XLA's
-        latency-hiding scheduler and IS substantiated (r4): AOT-compiling
-        this exact step for a v5e:2x4 topology (real TPU compiler, no chips
-        needed) shows the gradient-assembly all-gathers as async pairs with
-        302 and 78 independent instructions scheduled between start and
-        done — see OVERLAP_r04.md / scripts/overlap_evidence.py;
+        of pixel cotangents. Comm/compute overlap is left to XLA's
+        latency-hiding scheduler;
       * replicated parameters transpose to a psum of gradients over the
-        whole mesh; with the r4 sharded preprocess each device's
+        whole mesh; with the sharded preprocess each device's
         contribution is a disjoint N/D slice, which XLA lowers to
-        all-gathers of the slices instead of a dense all-reduce (the async
-        pairs above).
+        all-gathers of the slices instead of a dense all-reduce.
 
     Returns train_step(params, mask, opt_state, cameras, targets)
       -> (params, opt_state, loss, grads).
@@ -750,8 +735,7 @@ def make_sharded_train_step(
         act = scene.activated()
         if render_cfg.tiers:
             act = pad_gaussians(act, n_tile)
-            tiers_d = binning_ops.shard_tiers(
-                render_cfg.tiers, n_tile if interleave else 1)
+            tiers_d = binning_ops.shard_tiers(render_cfg.tiers, n_tile)
             use_exchange = n_tile > 1
             if use_exchange:
                 n_pad = act.means.shape[0]
@@ -825,12 +809,12 @@ def make_sharded_train_step(
         mask_spec = jax.tree.map(lambda _: P(), mask)
         cam_spec = jax.tree.map(lambda _: P(DATA_AXIS), cameras)
         tgt_spec = P(DATA_AXIS)
-        loss = shard_map(
+        loss = jax.shard_map(
             shard_fn,
             mesh=mesh,
             in_specs=(param_spec, mask_spec, cam_spec, tgt_spec),
             out_specs=P(DATA_AXIS),
-            check_rep=False,
+            check_vma=False,
         )(params, mask, cameras, targets)
         return jnp.mean(loss)
 

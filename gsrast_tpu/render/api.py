@@ -15,7 +15,22 @@ from .. import config as cfg
 from ..camera import Camera
 from ..scene.gaussians import ActivatedGaussians, GaussianScene
 from .dense import RenderOutput, render_dense
+from .pallas_blend import MAX_TILE_PIXELS
 from .tiled import render_tiled_xla
+
+
+def default_backend(platform: str | None = None) -> str:
+    """The render backend for a JAX platform (default: the current one):
+    the compiled pallas kernels on a GPU, the XLA path on the CPU. Any other
+    platform is an error, never a silent fallback."""
+    import jax
+
+    platform = platform or jax.default_backend()
+    if platform == "gpu":
+        return "pallas"
+    if platform == "cpu":
+        return "xla"
+    raise ValueError(f"no render backend for platform {platform!r}")
 
 
 def scene_tile_counts(scene, camera: Camera, render_cfg: cfg.RenderConfig):
@@ -54,25 +69,17 @@ def auto_render_config(
     ops.binning.auto_tiers), and the tile shape picked by the big-splat
     heuristic (mean tiles/gaussian > 8 -> double the tile width, halving
     big-rect tile counts). This is what `python -m gsrast_tpu render/train`
-    runs — no hand-set K knobs anywhere in the user-facing flows (VERDICT
-    r4 #3). `margin` is budget headroom for view/scene drift (training
-    passes a larger one because densification reshapes the count
-    distribution); overflow beyond it is counted in RenderStats, never
-    silent."""
-    import jax
+    runs — no hand-set K knobs anywhere in the user-facing flows.
+    `margin` is budget headroom for view/scene drift (training passes a
+    larger one because densification reshapes the count distribution);
+    overflow beyond it is counted in RenderStats, never silent."""
     import numpy as np
 
     from ..ops import binning as binning_ops
 
     if backend is None:
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
+        backend = default_backend()
     rcfg = base if base is not None else cfg.RenderConfig()
-    if base is None:
-        # r5 sweep default (scripts/tile_sweep.py, 1M/1080p per-dispatch):
-        # 16x32 260 ms vs 8x64 280, 8x32/16x16 297, 4x32 430 — square-ish
-        # tiles minimize tiles/gaussian, the knob both the row-count-bound
-        # fused sort and the chunk-visit-bound blend pay for.
-        rcfg = rcfg.replace(tile_h=16, tile_w=32)
     # Legacy-path knobs stay as counted fallbacks for cfg.tiers=() callers.
     rcfg = rcfg.replace(
         backend=backend, max_tiles_per_gaussian=512, heavy_fraction=0.5)
@@ -80,14 +87,10 @@ def auto_render_config(
     mean_c = float(counts.mean()) if counts.size else 0.0
     # Big-splat scenes (trained scenes grow splats spanning many tiles):
     # keep doubling the tile AREA while the mean owned-tile count stays
-    # high — the fused sort is row-count-bound and rows scale with
-    # tiles/gaussian, while the blend's per-pair cost grows only mildly
-    # with P (r5: trained-1.1M at 1080p was ~65% pack-sort time at 16x32).
-    # P capped at 2048: the blend kernels process pixels in P/1024 slices
-    # (pallas_blend._psplit) to stay under the 16 MB scoped-VMEM limit; the
-    # cap bounds the per-chunk slice count at 2.
+    # high. Sort rows scale with tiles/gaussian; the blend kernels take
+    # tiles up to pallas_blend.MAX_TILE_PIXELS.
     while (auto_tile_w and mean_c > 8.0
-           and rcfg.tile_h * rcfg.tile_w < 2048):
+           and rcfg.tile_h * rcfg.tile_w < MAX_TILE_PIXELS):
         if rcfg.tile_w <= rcfg.tile_h * 2:
             rcfg = rcfg.replace(tile_w=rcfg.tile_w * 2)
         else:

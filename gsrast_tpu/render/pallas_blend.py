@@ -1,306 +1,162 @@
-"""Pallas TPU kernels: per-tile front-to-back alpha blend, forward + backward.
+"""Pallas kernels (Triton route): per-tile front-to-back alpha blend, forward
+and backward.
 
-TPU-native re-creation of the reference's hottest kernel pair — the tile blend
+The reference's hottest kernel pair is the tile blend
 (/root/reference/apps/gsrast/gscuda/GSCuda.cu:543-677) plus the hand-derived
 backward the reference never implemented (SURVEY.md §2.3 "no backward pass").
+Both kernels keep its shape: one program per tile, one lane per pixel, and a
+loop inside the program over the tile's own depth-ordered segment
+`[tile_starts[t], tile_starts[t+1])`. Programs run in parallel and share
+nothing; each loads its own segment bounds.
 
-Layout (the round-2 redesign: zero scalar reads, MXU for the reductions):
-  * PIXELS live in SUBLANES, GAUSSIANS live in LANES. Each grid step owns one
-    tile of P = tile_h * tile_w pixels; every intermediate is a (P, 128) f32
-    array: 128 depth-ordered gaussians (one chunk) blended against all P
-    pixels by full-width VPU ops.
-  * Features are packed TRANSPOSED as ONE (16, C) lane-major array in GLOBAL
-    depth-sorted order: chunk k is the column window [128k, 128k+128) — row f
-    holds feature f of every intersection:
-        rows [mx, my, conic_a, conic_b, conic_c, opacity, r, g, b, tile, 0..].
-    A feature vector is a (1, 128) sublane read that broadcasts against the
-    (P, 1) pixel coordinates — no scalar VMEM reads anywhere. The layout is
-    built WITHOUT any transpose (r3): per-feature rows are stacked (9, N)
-    from preprocess outputs and ride the binning sort as payloads (r4), and
-    the backward writes gradients in the same layout, so the VJP's routing
-    sort reads its payload columns as free row slices.
-  * Tile segments are NOT padded to chunk boundaries (round 2 removed the
-    whole re-padding stage): tile t walks chunks floor(start/128) ..
-    ceil(end/128); lanes belonging to a neighboring tile in the shared
-    boundary chunks are masked off by comparing feature row 9 (the tile id)
-    against the current tile. In the backward, the FIRST tile covering a
-    chunk writes its gradient block, and later tiles ACCUMULATE into it with
-    a read-modify-write — safe because TPU Pallas grid steps execute
-    sequentially on the core.
-  * The sequential blend recurrence T *= (1 - alpha) is evaluated in closed
-    form per chunk: a log-step cumulative product along lanes (7 shifted
-    multiplies), exactly the same closed form the XLA oracle uses
-    (render/tiled.py), so forward results match the oracle bit-for-bit in
-    ordering semantics.
-  * Color accumulation C += sum_g w_g c_g is ONE MXU matmul per chunk of the
-    THREE rgb feature rows against w (r5: the r2-r4 kernels multiplied all
-    16 feature rows and discarded 13 — a 5x MXU waste).
-  * r5 fast/slow chunk split: per-pixel saturation state only CHANGES in the
-    one chunk where that pixel's transmittance crosses TRANSMITTANCE_MIN.
-    Chunks with no crossing (the overwhelming majority) take a branch with
-    NO include-mask, NO masked lane-min for final_T (it is just the chunk's
-    exit transmittance) and NO lane reduction for n_contrib (it advances by
-    the chunk's segment-lane count, a scalar) — ~35% fewer vector ops than
-    the r4 kernel. The crossing chunk takes the full masked path. Saturated
-    tiles skip whole chunks, as before.
-  * n_contrib semantics (r5): the per-pixel count of blend positions BEFORE
-    saturation (include=True positions in the tile's segment), which is what
-    the backward's replay gate actually needs. The reference reports the
-    last position with a nonzero contribution (GSCuda.cu:671) — a value <=
-    ours when trailing sub-threshold slots precede the crossing; the oracle
-    paths (render/tiled.py, render/dense.py) use the same r5 definition so
-    every backend stays bit-identical.
-  * The backward's per-gaussian suffix sums (the Inria reverse recurrence)
-    are ONE strictly-lower-mask 128x128 MXU matmul per chunk; a 7-step
-    Hillis-Steele lane suffix scan was A/B-measured against it in r5
-    (GSRAST_SUFFIX_MATMUL=0) and LOST by ~10 ms/step at 1M/1080p — lane
-    shifts lower to concat copies on Mosaic, and 21 full-tile VPU ops cost
-    more than the matmul's 6 passes. exact f32 adds either way.
-  * CUDA shared-memory staging of 256 gaussians (GSCuda.cu:576-614) maps to
-    double-buffered async DMA of (16, 128) chunks, overlapped with compute;
-    per-pixel early termination (GSCuda.cu:652-658) maps to a per-tile chunk
-    skip once every pixel saturates.
+Features arrive as ONE (FROWS, C) array in global depth-sorted order: row f
+holds feature f of every intersection,
+    rows [mx, my, conic_a, conic_b, conic_c, opacity, r, g, b, 0..].
+
+Forward: the reference's sequential per-pixel recurrence. Each gaussian's
+nine features are scalar loads; every pixel of the tile updates its own
+transmittance T, colour and contribution count. The program stops once every
+pixel has saturated (checked every FWD_BATCH gaussians).
+
+Backward: the tile's segment is replayed in reverse, BWD_CHUNK gaussians at a
+time, as a (P, BWD_CHUNK) block. Transmittance before each gaussian comes
+from a running log-transmittance and an in-chunk prefix sum of log(1 - alpha);
+the suffix colour term S_g = sum_{h>g} (dC.c_h) alpha_h T_h is a prefix sum
+subtracted from the chunk total. Each pixel's replay is gated by its own
+n_contrib. Per-gaussian gradients are sums over the pixel axis, written with a
+masked store to the tile's own columns only: no two programs write the same
+column, and columns no program writes stay at the zeros the output aliases.
 
 Blend math (identical semantics to GSCuda.cu:634-676):
   power = -1/2 (A dx^2 + C dy^2) - B dx dy        [dx = mean - pixel]
   alpha = min(0.99, opacity * exp(power)); skip power > 0 or alpha < 1/255
   P_i = T_i (1 - alpha_i);  include_i = P_i >= 1e-4 (monotone done flag)
   C += c_i alpha_i T_i; final_T = last included P_i.
+n_contrib is the count of segment positions before saturation (include=True
+positions), which is what the backward's replay gate needs; the oracle paths
+(render/tiled.py, render/dense.py) use the same definition.
 """
 
 from __future__ import annotations
 
 import functools
-import os
-
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from .. import config as cfg
 
-CHUNK = 128  # gaussians per chunk (the lane width)
-FROWS = 16  # feature rows per chunk (9 used)
+FROWS = 16  # feature rows of the packed layout (9 used)
 
-# feature row indices within a chunk block
-F_MX, F_MY, F_CA, F_CB, F_CC, F_OP, F_R, F_G, F_B, F_TID = range(10)
-# output ROWS of the (OUT_ROWS, P) per-tile result (channel-first: a
-# (T, P, k) output would pad its minor dim k -> 128 lanes in HBM, an 8x+
-# allocation blow-up that OOMs 4K; (T, 8, P) tiles perfectly). r5 shrank the
-# block 16 -> 8 rows (the r2-r4 kernels wrote 11 junk rows of matmul
-# by-product).
+# feature row indices
+F_MX, F_MY, F_CA, F_CB, F_CC, F_OP, F_R, F_G, F_B = range(9)
+# output ROWS of the (T, OUT_ROWS, P) per-tile forward result
 OUT_ROWS = 8
 OC_R, OC_G, OC_B = 0, 1, 2
 OC_FT = 3   # final transmittance
 OC_NC = 4   # n_contrib as f32 (exact below 2^24)
+# aux ROWS of the (T, 8, P) per-pixel backward input
+A_DR, A_DG, A_DB, A_DFT, A_FT, A_NC = range(6)
 
-_HI = jax.lax.Precision.HIGHEST
-# Temporary A/B switch for the backward suffix-sum implementation
-# (Hillis-Steele lane scan vs strictly-lower-mask MXU matmul).
-_SUFFIX_MATMUL = os.environ.get("GSRAST_SUFFIX_MATMUL", "1") == "1"
-
-
-def _psplit(p: int) -> int:
-    """Pixel-slice count for a P-pixel tile: both kernels' VMEM working
-    sets are ~10-20 (rows, 128) f32 temporaries, so rows are capped at 1024
-    against the 16 MB scoped-vmem limit (P=2048 single-slice measured
-    20.7 MB at compile time) by processing the tile in P/1024 sequential
-    pixel slices."""
-    assert p % 128 == 0
-    split = max(1, p // 1024)
-    assert p % split == 0
-    return split
+FWD_BATCH = 32   # gaussians between two saturation checks in the forward
+BWD_CHUNK = 16   # gaussians per backward replay block
+MAX_TILE_PIXELS = 1024
 
 
-def _pixel_coords(ty, tx, tile_h: int, tile_w: int):
-    """Absolute pixel centers of tile (row ty, col tx) as (P, 1) f32 cols."""
-    p = tile_h * tile_w
-    pidx = jax.lax.broadcasted_iota(jnp.int32, (p, 1), 0)
-    prow = pidx // tile_w
-    pcol = pidx - prow * tile_w
-    px = (tx * tile_w + pcol).astype(jnp.float32)
-    py = (ty * tile_h + prow).astype(jnp.float32)
-    return px, py
+def check_tile_shape(tile_h: int, tile_w: int) -> None:
+    """The kernels hold a tile's pixels as one power-of-two vector, at most
+    MAX_TILE_PIXELS long (four pixels a thread at eight warps)."""
+    for name, v in (("tile_h", tile_h), ("tile_w", tile_w)):
+        if v <= 0 or v & (v - 1):
+            raise ValueError(f"pallas backend needs power-of-two tiles; "
+                             f"{name}={v}")
+    if tile_h * tile_w > MAX_TILE_PIXELS:
+        raise ValueError(f"pallas backend tiles hold at most "
+                         f"{MAX_TILE_PIXELS} pixels, got {tile_h}x{tile_w}")
 
 
-def _shift_lanes(x: jax.Array, k: int, fill: float) -> jax.Array:
-    """result[:, l] = x[:, l-k] for l >= k, else fill (static k)."""
-    p = x.shape[0]
-    return jnp.concatenate(
-        [jnp.full((p, k), fill, x.dtype), x[:, : x.shape[1] - k]], axis=1
-    )
+def _num_warps(p: int, pixels_per_thread: int) -> int:
+    return max(1, min(8, p // (32 * pixels_per_thread)))
 
 
-def _shift_lanes_left(x: jax.Array, k: int, fill: float) -> jax.Array:
-    """result[:, l] = x[:, l+k] for l < L-k, else fill (static k)."""
-    p = x.shape[0]
-    return jnp.concatenate(
-        [x[:, k:], jnp.full((p, k), fill, x.dtype)], axis=1
-    )
+def _check_interpret(interpret: bool) -> None:
+    if interpret and jax.default_backend() == "gpu":
+        raise ValueError(
+            "interpret=True would run the Pallas interpreter on the GPU; "
+            "the blend kernels run compiled there")
 
 
-def _cumprod_lanes(x: jax.Array) -> jax.Array:
-    """Inclusive cumulative product along lanes (Hillis-Steele, 7 steps)."""
-    for k in (1, 2, 4, 8, 16, 32, 64):
-        x = x * _shift_lanes(x, k, 1.0)
-    return x
+def _pixel_coords(tmap_ref, t, grid_w: int, tile_h: int, tile_w: int):
+    """Absolute pixel centres of local tile t as (P,) f32 vectors. The
+    tile-sharded path renders global tile row tmap[0] + local_row * tmap[1],
+    same column."""
+    pidx = jnp.arange(tile_h * tile_w, dtype=jnp.int32)
+    ty = tmap_ref[0] + jax.lax.div(t, grid_w) * tmap_ref[1]
+    tx = jax.lax.rem(t, grid_w)
+    px = tx * tile_w + jax.lax.rem(pidx, tile_w)
+    py = ty * tile_h + jax.lax.div(pidx, tile_w)
+    return px.astype(jnp.float32), py.astype(jnp.float32)
 
 
-def _suffix_sum_lanes(x: jax.Array) -> jax.Array:
-    """INCLUSIVE suffix sum along lanes: out[:, l] = sum_{h >= l} x[:, h]
-    (Hillis-Steele, 7 shifted adds). Lane 0 is the full-row total."""
-    for k in (1, 2, 4, 8, 16, 32, 64):
-        x = x + _shift_lanes_left(x, k, 0.0)
-    return x
-
-
-def _alpha_terms(f, px, py, t_f32):
-    """Shared forward/backward per-chunk math: (P, 128) dx, dy, gv, alpha, ok
-    from a (FROWS, 128) feature block (GSCuda.cu:634-649 semantics). `ok`
-    also masks lanes whose tile-id row differs from the current tile (shared
-    boundary chunks)."""
-    mx = f[F_MX : F_MX + 1, :]
-    my = f[F_MY : F_MY + 1, :]
-    ca = f[F_CA : F_CA + 1, :]
-    cb = f[F_CB : F_CB + 1, :]
-    cc = f[F_CC : F_CC + 1, :]
-    op = f[F_OP : F_OP + 1, :]
-    dx = mx - px
-    dy = my - py
-    power = -0.5 * (ca * (dx * dx) + cc * (dy * dy)) - cb * (dx * dy)
-    gv = jnp.exp(power)
-    og = op * gv
-    alpha = jnp.minimum(cfg.ALPHA_MAX, og)
-    mine = f[F_TID : F_TID + 1, :] == t_f32
-    ok = (power <= 0.0) & (alpha >= cfg.ALPHA_MIN) & mine
-    return dx, dy, ca, cb, cc, gv, og, alpha, ok, mine
-
-
-def _forward_kernel(
-    starts_ref,  # scalar prefetch: (T+1,) i32 segment bounds (unaligned)
-    tmap_ref,  # scalar prefetch: (2,) i32 [tile_lo, tile_stride] — global id
-    feat_ref,  # (FROWS, C) f32 lane-major packed features in HBM
-    out_ref,  # out block (1, OUT_ROWS, P): rows 0:3 rgb, 3 final_T, 4 n_contrib
-    buf,  # VMEM (2, FROWS, 128) double buffer
-    sems,  # DMA sems (2,)
-    *,
-    grid_w: int,
-    tile_h: int,
-    tile_w: int,
-    psplit: int = 1,
-):
+def _forward_kernel(starts_ref, tmap_ref, feat_ref, out_ref, *, grid_w: int,
+                    tile_h: int, tile_w: int):
     t = pl.program_id(0)
     start = starts_ref[t]
     end = starts_ref[t + 1]
-    chunk0 = start // CHUNK
-    nchunks = jnp.where(end > start, (end + CHUNK - 1) // CHUNK - chunk0, 0)
+    px, py = _pixel_coords(tmap_ref, t, grid_w, tile_h, tile_w)
     p = tile_h * tile_w
-    hp = p // psplit  # pixels per split (static; see blend_forward)
-    # Tile-sharded path: local tile t renders the GLOBAL tile at row
-    # row0 + local_row*stride (stride = #devices when row ownership is
-    # interleaved for load balance), same column.
-    px, py = _pixel_coords(
-        tmap_ref[0] + (t // grid_w) * tmap_ref[1], t % grid_w, tile_h, tile_w
-    )
-    px_h = [px[h * hp:(h + 1) * hp] for h in range(psplit)]
-    py_h = [py[h * hp:(h + 1) * hp] for h in range(psplit)]
-    t_f32 = t.astype(jnp.float32)
 
-    def get_dma(slot, k):
-        return pltpu.make_async_copy(
-            feat_ref.at[:, pl.ds((chunk0 + k) * CHUNK, CHUNK)],
-            buf.at[slot],
-            sems.at[slot],
+    def gauss(i, c):
+        tr, r, g, b, nc, live = c
+        dx = feat_ref[F_MX, i] - px
+        dy = feat_ref[F_MY, i] - py
+        # Same operation order as the oracle (render/tiled.py), so the two
+        # round alike near the ALPHA_MIN cut.
+        power = (-0.5 * (feat_ref[F_CA, i] * dx * dx
+                         + feat_ref[F_CC, i] * dy * dy)
+                 - feat_ref[F_CB, i] * dx * dy)
+        alpha = jnp.minimum(cfg.ALPHA_MAX, feat_ref[F_OP, i] * jnp.exp(power))
+        ok = (power <= 0.0) & (alpha >= cfg.ALPHA_MIN)
+        a = jnp.where(ok, alpha, 0.0)
+        test = tr * (1.0 - a)
+        # include is monotone: once a pixel saturates it stays done.
+        inc = (live > 0.0) & (test >= cfg.TRANSMITTANCE_MIN)
+        w = jnp.where(inc, a * tr, 0.0)
+        return (
+            jnp.where(inc, test, tr),
+            r + w * feat_ref[F_R, i],
+            g + w * feat_ref[F_G, i],
+            b + w * feat_ref[F_B, i],
+            nc + jnp.where(inc, 1.0, 0.0),
+            jnp.where(inc, 1.0, 0.0),
         )
 
-    @pl.when(nchunks > 0)
-    def _():
-        get_dma(0, 0).start()
+    def batch_cond(c):
+        lo, st = c
+        return (lo < end) & (jnp.max(st[5]) > 0.0)
 
-    def live_body(k, slot, carry):
-        # One unconditional masked path. (A fast/slow per-chunk lax.cond —
-        # cheap branch with no include mask when no pixel's transmittance
-        # crosses in the chunk — was tried in the first r5 cut and REVERTED:
-        # measured fwd went 58 -> 62 ms; the predicate reduce + duplicated
-        # branch bodies cost more than the ~9 masked ops they saved.)
-        # Pixels are processed in `psplit` sequential slices so the VMEM
-        # working set stays ~(P/psplit, 128) regardless of tile area (the
-        # 16 MB scoped-vmem limit caps a single-slice tile at P=1024).
-        f = buf[slot]  # (FROWS, 128)
-        out = []
-        for h in range(psplit):
-            t_carry, acc3, ft, nc = carry[h]
-            _, _, _, _, _, _, _, alpha, ok, mine = _alpha_terms(
-                f, px_h[h], py_h[h], t_f32)
-            a_eff = jnp.where(ok, alpha, 0.0)
-            cum = _cumprod_lanes(1.0 - a_eff)  # inclusive (hp, 128)
-            t_before = t_carry * _shift_lanes(cum, 1, 1.0)
-            test_t = t_carry * cum
-            # include = P_i >= T_min is monotone along lanes; saturated
-            # pixels have include all-False, so their ft/nc stay frozen.
-            include = test_t >= cfg.TRANSMITTANCE_MIN
-            w = jnp.where(include, a_eff * t_before, 0.0)
-            # The THREE rgb rows only: f[6:9] (3, 128) @ w^T (128, hp).
-            acc3 = acc3 + jax.lax.dot_general(
-                f[F_R : F_B + 1, :], w, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32, precision=_HI,
-            )
-            ft = jnp.minimum(
-                ft,
-                jnp.min(jnp.where(include, test_t, 2.0), axis=1,
-                        keepdims=True),
-            )
-            nc = nc + jnp.sum(
-                jnp.where(include & mine, 1.0, 0.0), axis=1, keepdims=True)
-            # cum is monotone non-increasing: last lane = full product.
-            t_exit = t_carry * cum[:, CHUNK - 1 :]
-            out.append((t_exit, acc3, ft, nc))
-        return tuple(out)
+    def batch_body(c):
+        lo, st = c
+        hi = jnp.minimum(lo + FWD_BATCH, end)
+        return hi, jax.lax.fori_loop(lo, hi, gauss, st)
 
-    def chunk_body(k, carry):
-        # Keep the DMA pipeline moving even for saturated tiles so the
-        # semaphores stay balanced.
-        slot = jax.lax.rem(k, 2)
-
-        @pl.when(k + 1 < nchunks)
-        def _():
-            get_dma(jax.lax.rem(k + 1, 2), k + 1).start()
-
-        get_dma(slot, k).wait()
-
-        t_max = jnp.max(carry[0][0])
-        for h in range(1, psplit):
-            t_max = jnp.maximum(t_max, jnp.max(carry[h][0]))
-        done = t_max < cfg.TRANSMITTANCE_MIN
-        return jax.lax.cond(
-            done, lambda c: c, functools.partial(live_body, k, slot), carry
-        )
-
-    init = tuple(
-        (
-            jnp.ones((hp, 1), jnp.float32),  # running T
-            jnp.zeros((3, hp), jnp.float32),  # rgb accumulator
-            jnp.ones((hp, 1), jnp.float32),  # final_T
-            jnp.zeros((hp, 1), jnp.float32),  # n_contrib
-        )
-        for _ in range(psplit)
-    )
-    fin = jax.lax.fori_loop(0, nchunks, chunk_body, init)
-    acc3 = jnp.concatenate([fin[h][1] for h in range(psplit)], axis=1)
-    ft = jnp.concatenate([fin[h][2] for h in range(psplit)], axis=0)
-    nc = jnp.concatenate([fin[h][3] for h in range(psplit)], axis=0)
-    # One small (P, 2) -> (2, P) relayout per tile moves ft/nc into rows.
-    ftnc = jnp.transpose(jnp.concatenate([ft, nc], axis=1), (1, 0))
-    out_ref[0] = jnp.concatenate(
-        [acc3, ftnc, jnp.zeros((OUT_ROWS - 5, p), jnp.float32)], axis=0
-    )
+    ones = jnp.ones((p,), jnp.float32)
+    zeros = jnp.zeros((p,), jnp.float32)
+    _, (tr, r, g, b, nc, _live) = jax.lax.while_loop(
+        batch_cond, batch_body, (start, (ones, zeros, zeros, zeros, zeros,
+                                         ones)))
+    out_ref[OC_R, :] = r
+    out_ref[OC_G, :] = g
+    out_ref[OC_B, :] = b
+    out_ref[OC_FT, :] = tr
+    out_ref[OC_NC, :] = nc
 
 
 def blend_forward(
     feat_packed: jax.Array,  # (FROWS, C) f32: transposed sorted-order feats
-    tile_starts: jax.Array,  # (T+1,) i32 segment bounds (unaligned)
+    tile_starts: jax.Array,  # (T+1,) i32 segment bounds
     grid_h: int,
     grid_w: int,
     tile_h: int,
@@ -310,294 +166,118 @@ def blend_forward(
     tile_map: jax.Array | None = None,
 ) -> jax.Array:
     """Returns (T, OUT_ROWS, P): rows 0:3 rgb, row 3 final_T, row 4
-    n_contrib.
+    n_contrib (rows 5:8 unused).
 
     `num_tiles`/`tile_map` support the tile-sharded path: blend `num_tiles`
     LOCAL tiles whose global tile ROW (for pixel coordinates) is
     tile_map[0] + local_row * tile_map[1], same column."""
+    _check_interpret(interpret)
+    check_tile_shape(tile_h, tile_w)
     if num_tiles is None:
         num_tiles = grid_h * grid_w
     if tile_map is None:
         tile_map = jnp.array([0, 1], jnp.int32)
     p = tile_h * tile_w
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(num_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.MemorySpace.HBM)],
-        out_specs=[pl.BlockSpec((1, OUT_ROWS, p), lambda t, s, m: (t, 0, 0))],
-        scratch_shapes=[
-            pltpu.VMEM((2, FROWS, CHUNK), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
+    whole = pl.BlockSpec()
     return pl.pallas_call(
-        functools.partial(
-            _forward_kernel, grid_w=grid_w, tile_h=tile_h, tile_w=tile_w,
-            psplit=_psplit(p),
-        ),
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((num_tiles, OUT_ROWS, p), jnp.float32)],
+        functools.partial(_forward_kernel, grid_w=grid_w, tile_h=tile_h,
+                          tile_w=tile_w),
+        grid=(num_tiles,),
+        in_specs=[whole, whole, whole],
+        out_specs=pl.BlockSpec((None, OUT_ROWS, p), lambda t: (t, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((num_tiles, OUT_ROWS, p), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_num_warps(p, 2),
+                                             num_stages=2),
         interpret=interpret,
-    )(tile_starts, tile_map.astype(jnp.int32), feat_packed)[0]
+        name="gsrast_blend_fwd",
+    )(tile_starts.astype(jnp.int32), tile_map.astype(jnp.int32), feat_packed)
 
 
-# aux ROWS for the backward: one (T, 8, P) channel-first block carries
-# everything per-pixel the reverse replay needs.
-A_DR, A_DG, A_DB, A_DFT, A_FT, A_NC = range(6)
-
-
-def _backward_kernel(
-    starts_ref,  # scalar prefetch (T+1,) i32 segment bounds (unaligned)
-    tmap_ref,  # scalar prefetch (2,) i32 [tile_lo, tile_stride]
-    feat_ref,  # (FROWS, C) lane-major packed features in HBM
-    aux_ref,  # (1, 8, P): d_rgb, d_ft, saved final_T, saved n_contrib
-    dfeat_ref,  # (FROWS, C) packed per-intersection grads out (HBM)
-    buf,  # VMEM (2, FROWS, 128) read buffer
-    obuf,  # VMEM (2, FROWS, 128) write buffer
-    rbuf,  # VMEM (FROWS, 128): neighbor's grads for shared-chunk accumulate
-    aux_sc,  # VMEM (P, 8): per-pixel aux columns, pixels in sublanes
-    tq_sc,  # VMEM (P, 2): col 0 = running T_after, col 1 = suffix q carry
-    sems,  # DMA sems (2,) reads
-    osems,  # DMA sems (2,) writes
-    rsem,  # DMA sem for the shared-chunk read
-    *,
-    grid_w: int,
-    tile_h: int,
-    tile_w: int,
-    psplit: int = 1,
-):
+def _backward_kernel(starts_ref, tmap_ref, feat_ref, aux_ref, _zeros_ref,
+                     dfeat_ref, *, grid_w: int, tile_h: int, tile_w: int):
     t = pl.program_id(0)
     start = starts_ref[t]
-    end = starts_ref[t + 1]
-    chunk0 = start // CHUNK
-    nchunks = jnp.where(end > start, (end + CHUNK - 1) // CHUNK - chunk0, 0)
-    # Chunk chunk0 is shared with an earlier tile iff the segment starts
-    # mid-chunk; that tile has already written it (sequential grid), so this
-    # tile must accumulate rather than overwrite.
-    shared_first = start % CHUNK != 0
-    p = tile_h * tile_w
-    hp = p // psplit  # pixels per slice (static; see _psplit)
-    ty_g = tmap_ref[0] + (t // grid_w) * tmap_ref[1]  # global tile row
-    tx_g = t % grid_w
-    t_f32 = t.astype(jnp.float32)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, CHUNK), 1)
+    px, py = _pixel_coords(tmap_ref, t, grid_w, tile_h, tile_w)
+    px, py = px[:, None], py[:, None]
+    d_r = aux_ref[A_DR, :][:, None]
+    d_g = aux_ref[A_DG, :][:, None]
+    d_b = aux_ref[A_DB, :][:, None]
+    ft = aux_ref[A_FT, :]
+    dft_ft = (aux_ref[A_DFT, :] * ft)[:, None]
+    nc = aux_ref[A_NC, :]
+    nc_col = nc[:, None]
+    # Positions past the tile's last contributor have zero gradient: the
+    # replay starts at the chunk holding it, and the aliased zeros stand
+    # for the rest of the segment.
+    live_end = start + jnp.max(nc).astype(jnp.int32)
+    nchunks = jax.lax.div(live_end - start + BWD_CHUNK - 1, BWD_CHUNK)
+    lane = jnp.arange(BWD_CHUNK, dtype=jnp.int32)
 
-    # One small (8, P) -> (P, 8) relayout per tile moves the aux rows into
-    # the kernel's pixels-in-sublanes orientation. Per-pixel state lives in
-    # VMEM SCRATCH (aux columns + the replay carries) and each pixel slice
-    # reads/writes its rows through dynamic ref slices inside a fori_loop —
-    # a statically-unrolled slice loop was tried first and still VMEM-OOMed
-    # at P=2048 (Mosaic keeps every unrolled slice's temporaries live:
-    # 18.9 MB vs the 16 MB scoped limit); the fori body compiles once, so
-    # only ONE slice's (hp, 128) working set exists.
-    aux = jnp.transpose(aux_ref[0], (1, 0))  # (P, 8)
-    aux_sc[:, :] = aux
-    tq_sc[:, :] = jnp.concatenate(
-        [aux[:, A_FT : A_FT + 1], jnp.zeros((p, 1), jnp.float32)], axis=1)
-    nc = aux[:, A_NC : A_NC + 1]  # f32, exact
+    def chunk(j, carry):
+        log_t, q = carry  # per pixel: log T after this chunk, suffix sum
+        c = nchunks - 1 - j
+        c0 = start + c * BWD_CHUNK
+        col_ok = c0 + lane < live_end
+        cols = pl.ds(c0, BWD_CHUNK)
 
-    # Chunks entirely past the tile's last contributor have zero gradient
-    # everywhere (forward saturation stopped before them): straight zero-fill,
-    # no feature read, no replay — the mirror of the forward early exit.
-    # n_contrib counts included positions in the segment (r5), so the last
-    # included 0-based position is ncm - 1.
-    ncm = jnp.max(nc).astype(jnp.int32)
-    nchunks_live = jnp.where(
-        ncm > 0, (start + ncm - 1) // CHUNK - chunk0 + 1, 0
-    )
-    nchunks_live = jnp.minimum(nchunks, nchunks_live)
+        def row(f):
+            return plgpu.load(feat_ref.at[f, cols], mask=col_ok, other=0.0)
 
-    def get_read(slot, k):
-        return pltpu.make_async_copy(
-            feat_ref.at[:, pl.ds((chunk0 + k) * CHUNK, CHUNK)],
-            buf.at[slot],
-            sems.at[slot],
+        ca, cb, cc = row(F_CA), row(F_CB), row(F_CC)
+        dx = row(F_MX)[None, :] - px
+        dy = row(F_MY)[None, :] - py
+        power = (-0.5 * (ca[None, :] * dx * dx + cc[None, :] * dy * dy)
+                 - cb[None, :] * dx * dy)
+        gv = jnp.exp(power)
+        og = row(F_OP)[None, :] * gv
+        alpha = jnp.minimum(cfg.ALPHA_MAX, og)
+        idx = (c * BWD_CHUNK + lane).astype(jnp.float32)[None, :]
+        applied = ((power <= 0.0) & (alpha >= cfg.ALPHA_MIN)
+                   & (idx < nc_col) & col_ok[None, :])
+        a_m = jnp.where(applied, alpha, 0.0)
+        om = 1.0 - a_m  # >= 1 - ALPHA_MAX = 0.01
+        lom = jnp.log(om)
+        lom_tot = jnp.sum(lom, axis=1)
+        # log T before gaussian g = log T_after - sum_{h >= g} lom_h.
+        t_g = jnp.exp((log_t - lom_tot)[:, None] + jnp.cumsum(lom, axis=1)
+                      - lom)
+        w = a_m * t_g
+        u = (d_r * row(F_R)[None, :] + d_g * row(F_G)[None, :]
+             + d_b * row(F_B)[None, :])
+        uw = u * w
+        uw_tot = jnp.sum(uw, axis=1)
+        suffix = uw_tot[:, None] - jnp.cumsum(uw, axis=1)  # sum_{h>g}
+        dalpha = t_g * u - (suffix + q[:, None] + dft_ft) / om
+        # alpha = min(0.99, o*G): the clamped branch has zero gradient.
+        da_g = jnp.where(applied & (og < cfg.ALPHA_MAX), dalpha, 0.0)
+        dpower = da_g * og
+        dpx = dpower * dx
+        dpy = dpower * dy
+        sx = jnp.sum(dpx, axis=0)
+        sy = jnp.sum(dpy, axis=0)
+        grads = (
+            (F_MX, -(ca * sx + cb * sy)),
+            (F_MY, -(cc * sy + cb * sx)),
+            (F_CA, -0.5 * jnp.sum(dpx * dx, axis=0)),
+            (F_CB, -jnp.sum(dpx * dy, axis=0)),
+            (F_CC, -0.5 * jnp.sum(dpy * dy, axis=0)),
+            (F_OP, jnp.sum(da_g * gv, axis=0)),
+            (F_R, jnp.sum(w * d_r, axis=0)),
+            (F_G, jnp.sum(w * d_g, axis=0)),
+            (F_B, jnp.sum(w * d_b, axis=0)),
         )
+        for f, val in grads:
+            plgpu.store(dfeat_ref.at[f, cols], val, mask=col_ok)
+        return log_t - lom_tot, q + uw_tot
 
-    def get_write(slot, k):
-        return pltpu.make_async_copy(
-            obuf.at[slot],
-            dfeat_ref.at[:, pl.ds((chunk0 + k) * CHUNK, CHUNK)],
-            osems.at[slot],
-        )
-
-    # Rows 9:16 of every grad block are always zero; live chunks only write
-    # rows 0:9, so pre-zero both slots once.
-    obuf[0] = jnp.zeros((FROWS, CHUNK), jnp.float32)
-    obuf[1] = jnp.zeros((FROWS, CHUNK), jnp.float32)
-
-    def zero_body(k, _):
-        # A dead shared first chunk belongs to the earlier tile that wrote
-        # it: adding zeros is a no-op, so skip the write entirely.
-        @pl.when((k > 0) | jnp.logical_not(shared_first))
-        def _():
-            wdma = get_write(0, k)
-            wdma.start()
-            wdma.wait()
-
-        return 0
-
-    @pl.when(nchunks_live < nchunks)
-    def _():
-        jax.lax.fori_loop(nchunks_live, nchunks, zero_body, 0)
-
-    @pl.when(nchunks_live > 0)
-    def _():
-        # First processed chunk is nchunks_live-1; its buffer slot is parity-
-        # based, NOT 0 (slot/semaphore mismatch deadlocks or double-signals).
-        get_read(jax.lax.rem(nchunks_live - 1, 2), nchunks_live - 1).start()
-
-    def chunk_body(i, carry):
-        k = nchunks_live - 1 - i  # reverse chunk order
-        slot = jax.lax.rem(k, 2)
-
-        @pl.when(i + 1 < nchunks_live)
-        def _():
-            get_read(jax.lax.rem(k - 1, 2), k - 1).start()
-
-        get_read(slot, k).wait()
-
-        f = buf[slot]
-        # Write pipelining (r5): obuf[slot] still has an in-flight DMA from
-        # chunk k+2 (same slot, started two iterations ago); wait for it
-        # only now, just before overwriting the buffer — the r2-r4 kernels
-        # start()+wait()ed every write synchronously, serializing ~1 us of
-        # DMA latency into every chunk of the reverse walk.
-        @pl.when(i >= 2)
-        def _():
-            get_write(slot, k + 2).wait()
-
-        # 0-based index within the segment (n_contrib gates the stopped
-        # tail). Pixels are processed in `psplit` sequential slices (see
-        # _psplit); per-chunk gradient rows SUM across slices before the
-        # single obuf write, and the replay carries (t_after, q) live in
-        # the tq_sc scratch. The summation order over pixels changes with
-        # psplit only between slices of DIFFERENT pixels — each (1, 128)
-        # gradient row remains the same per-pixel terms added in
-        # sublane-major order within each slice.
-        idxv = ((chunk0 + k) * CHUNK + lane - start).astype(jnp.float32)
-
-        def slice_body(h, g_rows):
-            sl = h * hp
-            auxh = aux_sc[pl.ds(sl, hp), :]  # (hp, 8)
-            tq = tq_sc[pl.ds(sl, hp), :]     # (hp, 2)
-            t_after = tq[:, 0:1]
-            q_carry = tq[:, 1:2]
-            nch = auxh[:, A_NC : A_NC + 1]
-            dftfth = auxh[:, A_DFT : A_DFT + 1] * auxh[:, A_FT : A_FT + 1]
-            pidx = sl + jax.lax.broadcasted_iota(jnp.int32, (hp, 1), 0)
-            prow = pidx // tile_w
-            pxh = (tx_g * tile_w + pidx - prow * tile_w).astype(jnp.float32)
-            pyh = (ty_g * tile_h + prow).astype(jnp.float32)
-            dx, dy, ca, cb, cc, gv, og, alpha, ok, _mine = _alpha_terms(
-                f, pxh, pyh, t_f32)
-            applied = ok & (idxv < nch)
-            a_m = jnp.where(applied, alpha, 0.0)
-            om = 1.0 - a_m  # >= 1 - ALPHA_MAX = 0.01
-            cum = _cumprod_lanes(om)
-            # cum is monotone non-increasing: last lane == chunk product.
-            t_start = t_after / cum[:, CHUNK - 1 :]
-            t_g = t_start * _shift_lanes(cum, 1, 1.0)  # T before gaussian
-            w = a_m * t_g
-
-            # u = dc . color per (pixel, gaussian): 5 broadcast VPU ops.
-            # (An MXU contraction with K=3 at HIGHEST precision issues the
-            # same 24 passes as a full 128-K matmul; measured 85 -> 98 ms.)
-            u = (
-                auxh[:, A_DR : A_DR + 1] * f[F_R : F_R + 1, :]
-                + auxh[:, A_DG : A_DG + 1] * f[F_G : F_G + 1, :]
-                + auxh[:, A_DB : A_DB + 1] * f[F_B : F_B + 1, :]
-            )  # (hp, 128)
-            uw = u * w
-            # dC/dalpha_i = T_i (c_i - S_i) with S the suffix blend; in
-            # closed form T_g·(dc·S) = (Σ_{h>g} u_h w_h) / (1 - a_g). ONE
-            # strictly-lower-mask MXU matmul (A/B-measured against a
-            # 7-step Hillis-Steele lane scan, which LOST 74 vs 64 ms bwd).
-            if _SUFFIX_MATMUL:
-                hh = jax.lax.broadcasted_iota(jnp.int32, (CHUNK, CHUNK), 0)
-                gg = jax.lax.broadcasted_iota(jnp.int32, (CHUNK, CHUNK), 1)
-                suffix = jax.lax.dot_general(
-                    uw, (hh > gg).astype(jnp.float32),
-                    (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32, precision=_HI,
-                )
-                chunk_tot = suffix[:, 0:1] + uw[:, 0:1]
-            else:
-                s_inc = _suffix_sum_lanes(uw)  # lane l = sum_{g >= l}
-                suffix = _shift_lanes_left(s_inc, 1, 0.0)  # exclusive
-                chunk_tot = s_inc[:, 0:1]
-            dalpha = t_g * u - (suffix + q_carry + dftfth) / om
-            dalpha = jnp.where(applied, dalpha, 0.0)
-            # alpha = min(0.99, o·G): clamped branch has zero gradient.
-            da_g = jnp.where(og < cfg.ALPHA_MAX, dalpha, 0.0)
-            dpower = da_g * og
-
-            # Per-feature gradients: direct sublane reductions of the
-            # dpower moments against the LANE-VARYING dx/dy (order-faithful
-            # sums; factoring the per-lane conic constants ca/cb/cc OUT of
-            # the pixel sums is a scalar multiple, not a rearrangement, so
-            # it cannot cancel), one MXU contraction of the (hp, 3) dc
-            # cotangent block against w for the three rgb rows.
-            dpx = dpower * dx
-            dpy = dpower * dy
-            sx = jnp.sum(dpx, axis=0, keepdims=True)   # (1, 128)
-            sy = jnp.sum(dpy, axis=0, keepdims=True)
-            m3 = jax.lax.dot_general(
-                auxh[:, A_DR : A_DB + 1], w, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32, precision=_HI,
-            )  # (3, 128): [sum w*dc_r, sum w*dc_g, sum w*dc_b]
-            rows = (
-                -(ca * sx + cb * sy),
-                -(cc * sy + cb * sx),
-                -0.5 * jnp.sum(dpx * dx, axis=0, keepdims=True),
-                -jnp.sum(dpx * dy, axis=0, keepdims=True),
-                -0.5 * jnp.sum(dpy * dy, axis=0, keepdims=True),
-                jnp.sum(da_g * gv, axis=0, keepdims=True),
-                m3[0:1, :], m3[1:2, :], m3[2:3, :],
-            )
-            tq_sc[pl.ds(sl, hp), :] = jnp.concatenate(
-                [t_start, q_carry + chunk_tot], axis=1)
-            return tuple(a + b for a, b in zip(g_rows, rows))
-
-        g_rows = jax.lax.fori_loop(
-            0, psplit, slice_body,
-            tuple(jnp.zeros((1, CHUNK), jnp.float32) for _ in range(9)),
-        )
-        for r, row in enumerate(g_rows):
-            obuf[slot, r : r + 1, :] = row
-
-        # Shared first chunk: accumulate into the earlier tile's block.
-        @pl.when((k == 0) & shared_first)
-        def _():
-            rdma = pltpu.make_async_copy(
-                dfeat_ref.at[:, pl.ds(chunk0 * CHUNK, CHUNK)], rbuf, rsem
-            )
-            rdma.start()
-            rdma.wait()
-            obuf[slot] = obuf[slot] + rbuf[:]
-
-        get_write(slot, k).start()
-
-        return 0
-
-    jax.lax.fori_loop(0, nchunks_live, chunk_body, 0)
-
-    # Drain the last (up to two) in-flight writes — chunks 1 and 0, slots 1
-    # and 0 — so the NEXT grid step's shared-boundary read of dfeat_ref sees
-    # completed data (grid steps are sequential, DMAs are not).
-    @pl.when(nchunks_live >= 2)
-    def _():
-        get_write(1, 1).wait()
-
-    @pl.when(nchunks_live >= 1)
-    def _():
-        get_write(0, 0).wait()
+    jax.lax.fori_loop(
+        0, nchunks, chunk, (jnp.log(ft), jnp.zeros_like(ft)))
 
 
 def blend_backward(
     feat_packed: jax.Array,  # (FROWS, C)
-    tile_starts: jax.Array,  # (T+1,) i32 segment bounds (unaligned)
+    tile_starts: jax.Array,  # (T+1,) i32 segment bounds
     aux: jax.Array,  # (T, 8, P): d_rgb | d_ft | saved final_T | saved nc
     grid_h: int,
     grid_w: int,
@@ -607,38 +287,29 @@ def blend_backward(
     num_tiles: int | None = None,
     tile_map: jax.Array | None = None,
 ) -> jax.Array:
+    """Per-intersection feature gradients (FROWS, C) in the packed layout;
+    rows 9: and every column no tile's replay reaches are zero."""
+    _check_interpret(interpret)
+    check_tile_shape(tile_h, tile_w)
     if num_tiles is None:
         num_tiles = grid_h * grid_w
     if tile_map is None:
         tile_map = jnp.array([0, 1], jnp.int32)
     p = tile_h * tile_w
-    cap = feat_packed.shape[1]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.MemorySpace.HBM),
-            pl.BlockSpec((1, 8, p), lambda t, s, m: (t, 0, 0)),
-        ],
-        out_specs=[pl.BlockSpec(memory_space=pltpu.MemorySpace.HBM)],
-        scratch_shapes=[
-            pltpu.VMEM((2, FROWS, CHUNK), jnp.float32),
-            pltpu.VMEM((2, FROWS, CHUNK), jnp.float32),
-            pltpu.VMEM((FROWS, CHUNK), jnp.float32),
-            pltpu.VMEM((p, 8), jnp.float32),   # aux columns (pixel-major)
-            pltpu.VMEM((p, 2), jnp.float32),   # replay carries (T_after, q)
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-    )
+    whole = pl.BlockSpec()
     return pl.pallas_call(
-        functools.partial(
-            _backward_kernel, grid_w=grid_w, tile_h=tile_h, tile_w=tile_w,
-            psplit=_psplit(p),
-        ),
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((FROWS, cap), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
+        functools.partial(_backward_kernel, grid_w=grid_w, tile_h=tile_h,
+                          tile_w=tile_w),
+        grid=(num_tiles,),
+        in_specs=[whole, whole, whole,
+                  pl.BlockSpec((None, 8, p), lambda t: (t, 0, 0)), whole],
+        out_specs=whole,
+        out_shape=jax.ShapeDtypeStruct(feat_packed.shape, jnp.float32),
+        input_output_aliases={4: 0},
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_num_warps(p, 1),
+                                             num_stages=2),
         interpret=interpret,
-    )(tile_starts, tile_map.astype(jnp.int32), feat_packed, aux)[0]
+        name="gsrast_blend_bwd",
+    )(tile_starts.astype(jnp.int32), tile_map.astype(jnp.int32), feat_packed,
+      aux, jnp.zeros(feat_packed.shape, jnp.float32))

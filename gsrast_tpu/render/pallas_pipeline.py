@@ -1,7 +1,7 @@
 """Tile-sorted renderer, Pallas fast path.
 
 Same pipeline as render/tiled.py (the XLA oracle) but the per-tile blend runs
-as hand-written Pallas TPU kernels with a custom VJP, exactly as the
+as hand-written Pallas GPU kernels with a custom VJP, exactly as the
 reference's CUDA design pairs its forward `renderCUDA` with a (never-written)
 backward (/root/reference/apps/gsrast/gscuda/GSCuda.cu:543-677; SURVEY.md
 §2.3). The forward saves per-pixel final transmittance and last-contributor
@@ -11,20 +11,17 @@ backward replays the blend in reverse from them.
 Differentiability layout:
   preprocess (XLA, autodiff)  ->  fused sort-pack (custom VJP: features ride
   the binning sort as payloads; cotangents route back by ONE slot-keyed sort
-  + per-tier sublane sums — NO scatter, NO gather)  ->  blend (Pallas
-  custom_vjp over per-intersection features)  ->  image assembly (XLA).
+  + per-tier sums — NO scatter, NO gather)  ->  blend (Pallas custom_vjp
+  over per-intersection features)  ->  image assembly (XLA).
 Binning is integer structure (stop_gradient), as in the reference where
 gradients do not flow through the sort.
 
-Dataflow history: round 2 packed features once by a post-sort gather (one
-contiguous row gather into the kernels' layout); round 4 deleted that gather
-entirely — `fused_pack` builds the feature rows ELEMENTWISE on the t-major
-multi-tier slot grid (a free middle-axis broadcast of count-ranked rows) and
-lets them ride the (tile, full-depth) 2-key sort as payloads (lax.sort cost
-is row-count-bound; BASELINE.md "Corrected sort economics"). The legacy
-two-tier `_gather_sorted` path below serves cfg.tiers=() configs and the
-primitive-sharded exchange. The kernels are unchanged: they walk unaligned
-per-tile segments and mask foreign lanes in shared boundary chunks.
+Dataflow: `fused_pack` builds the feature rows ELEMENTWISE on the t-major
+multi-tier slot grid (a broadcast of count-ranked rows) and lets them ride
+the (tile, full-depth) 2-key sort as payloads, so no gather follows the sort.
+The legacy two-tier `_gather_sorted` path below serves cfg.tiers=() configs
+and the primitive-sharded exchange. The kernels walk each tile's own
+segment of the sorted order.
 """
 
 from __future__ import annotations
@@ -45,10 +42,6 @@ from . import pallas_blend as pb
 from .tiled import untile, untile_cf
 
 
-def _use_interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
 @functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5))
 def _gather_sorted(feat_nt, sorted_gauss, sorted_slot, heavy_idx, k1, k2):
     """feat_nt (F, N) lane-major feature rows -> (F, C) columns in sorted
@@ -57,12 +50,9 @@ def _gather_sorted(feat_nt, sorted_gauss, sorted_slot, heavy_idx, k1, k2):
     Forward is a minor-axis gather; the hand-written VJP routes
     per-intersection cotangents back to the two-tier (n, k) slots by SORTING
     them (cotangent rows ride one structure sort keyed on the slot payload)
-    and K-summing each tier — measured on TPU v5e at bench scale this is
-    2.1x faster than inverting the permutation and gathering (209 ms vs
-    434+59 ms for a 16M-row route; random row gathers run ~37M rows/s
-    against a >100MB table) and 2.1x faster than the scatter-add XLA
-    autodiff would emit (447 ms; VERDICT r1 weak #1). Runs only when
-    differentiating — pure forward rendering pays nothing."""
+    and K-summing each tier, in place of the scatter-add XLA autodiff would
+    emit. Runs only when differentiating — pure forward rendering pays
+    nothing."""
     gidx = jnp.maximum(sorted_gauss, 0)
     live = (sorted_gauss >= 0).astype(jnp.float32)[None, :]
     return feat_nt[:, gidx] * live  # dead slots inert (opacity 0)
@@ -98,10 +88,7 @@ def _gather_sorted_bwd(k1, k2, res, dfeat):
     d_slots = jnp.stack(out[1:], axis=0)[:, :ns]  # (F, ns)
 
     def ksum(x, k):
-        # Strided windowed sum along the flat minor axis. A reshape to
-        # (F, n, k) puts k in the minor dim, which the TPU layout pads
-        # 8 -> 128 lanes — a 16x materialized blow-up (OOM at 5M gaussians);
-        # reduce_window keeps the flat lane-major layout.
+        # Strided windowed sum along the flat minor axis.
         return jax.lax.reduce_window(
             x, 0.0, jax.lax.add, window_dimensions=(1, k),
             window_strides=(1, k), padding="VALID",
@@ -119,7 +106,7 @@ _gather_sorted.defvjp(_gather_sorted_fwd, _gather_sorted_bwd)
 
 
 def feature_rows(prep) -> jax.Array:
-    """Per-gaussian screen features as (9, N) lane-major rows (the kernels'
+    """Per-gaussian screen features as (9, N) rows (the kernels'
     feature-row order, see pallas_blend rows 0:9)."""
     return jnp.stack(
         [
@@ -134,16 +121,14 @@ def feature_rows(prep) -> jax.Array:
 
 def _fused_pack_impl(feat_nt, tile_key, depth_key, slot, gauss, order,
                      tiers, n, num_tiles, need_slot=True):
-    """`need_slot=False` (r5): pure-forward renders (the viewer path) drop
+    """`need_slot=False`: pure-forward renders (the viewer path) drop
     the slot payload from the sort — it exists only to route cotangents in
-    the VJP; sort cost is ~linear in operand count (BASELINE.md)."""
-    del gauss  # structure-only; the oracle runs its own structure sort
+    the VJP."""
     dims, _ = binning_ops.tier_dims(n, tiers)
     s = tile_key.shape[0]
     ranked = feat_nt[:, order]  # (9, N) count-ranked
-    # T-major tier blocks: broadcasting along a NEW MIDDLE axis keeps ranks
-    # in lanes — contiguous row copies, no minor-dim relayout (a rank-major
-    # jnp.repeat along the minor axis cost ~40 ms at 1M/1080p).
+    # T-major tier blocks: a broadcast along a NEW MIDDLE axis — contiguous
+    # row copies, no relayout.
     parts = [
         jnp.broadcast_to(ranked[:, None, :b_j], (9, w_j, b_j))
         .reshape(9, w_j * b_j)
@@ -154,49 +139,41 @@ def _fused_pack_impl(feat_nt, tile_key, depth_key, slot, gauss, order,
     if s > s0:
         grid_feat = jnp.concatenate(
             [grid_feat, jnp.zeros((9, s - s0), grid_feat.dtype)], axis=1)
-    # num_keys=2: (tile, FULL 32-bit depth) — the reference's 64-bit
-    # tile|depth ordering exactly (GSCuda.cu:461-474); no quantized ties.
+    # num_keys=3: (tile, FULL 32-bit depth, gaussian id) — the reference's
+    # 64-bit tile|depth ordering (GSCuda.cu:461-474) with equal depths
+    # blended in gaussian-id order. The slot order (a count ranking) would
+    # break such ties differently on every tile-sharded device, and the
+    # sharded renders would then disagree with this one.
     maybe_slot = (slot,) if need_slot else ()
-    ops = (tile_key, depth_key) + maybe_slot + tuple(
+    ops = (tile_key, depth_key, gauss) + maybe_slot + tuple(
         grid_feat[i] for i in range(9))
-    out = jax.lax.sort(ops, dimension=0, num_keys=2, is_stable=True)
+    out = jax.lax.sort(ops, dimension=0, num_keys=3, is_stable=True)
     tile = out[0]
-    sslot = out[2] if need_slot else None
-    base = 3 if need_slot else 2
+    sslot = out[3] if need_slot else None
+    base = 4 if need_slot else 3
     tile_starts = jnp.searchsorted(
         tile, jnp.arange(num_tiles + 1, dtype=jnp.int32), side="left"
     ).astype(jnp.int32)
-    feat_packed = jnp.concatenate(
-        [jnp.stack(out[base:], axis=0),
-         jax.lax.stop_gradient(tile).astype(jnp.float32)[None, :],
-         jnp.zeros((pb.FROWS - 10, s), jnp.float32)],
-        axis=0,
-    )
+    feat_packed = pack_sorted_features(jnp.stack(out[base:], axis=0))
     return feat_packed, tile_starts, sslot
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(6, 7, 8))
 def fused_pack(feat_nt, tile_key, depth_key, slot, gauss, order, tiers, n,
                num_tiles):
-    """Multi-tier fused sort-pack (r4): the 9 feature rows ride the binning
+    """Multi-tier fused sort-pack: the 9 feature rows ride the binning
     sort as payloads, built ELEMENTWISE on the tier grid (a broadcast of the
     count-ranked per-gaussian rows — no gather anywhere in the forward).
 
-    Replaces build_binning's sort + the separate sorted-order feature gather
-    + relayout. Measured economics on TPU v5e (synced timers, r4): lax.sort
-    cost ~= rows x (base + ~0.9ns/payload-operand) — 3-op 5.74M rows 20 ms
-    vs 12-op 64 ms — while a 5M-row random gather is ~50 ms and its layout
-    fixup ~30 ms. Fusing the pack into the sort's payloads beats
-    gather+relayout AND the multi-tier grid shrinks the row count toward the
-    true intersection count (the dominant factor). The reference does the
-    equivalent with one CUB radix sort over (tile|depth) keys + payload
-    indices (GSCuda.cu:791-797) and gathers features per-pixel inside the
-    blend; a TPU gather at blend time would be catastrophically slow, hence
-    sort-time packing.
+    Replaces build_binning's sort + the separate sorted-order feature gather.
+    The multi-tier grid keeps the sort's row count near the true
+    intersection count. The reference does the equivalent with one CUB
+    radix sort over (tile|depth) keys + payload indices (GSCuda.cu:791-797)
+    and gathers features per-pixel inside the blend.
 
-    Returns (feat_packed (FROWS, S), tile_starts (T+1,)). `gauss` is unused
-    structure (the oracle runs its own (key, gauss) sort; the hot path never
-    pays for the extra payload). Backward: cotangent rows are routed back to
+    Returns (feat_packed (FROWS, S), tile_starts (T+1,)). `gauss` is the
+    third sort key: equal depths blend in gaussian-id order on every path
+    (the oracle and the sharded paths sort the same three keys). Backward: cotangent rows are routed back to
     the tier grid by ONE sort keyed on the slot payload (no scatter),
     reduced per tier by sublane-axis sums (t-major tiers), accumulated
     across tiers by SLICE adds (tiers are nested prefixes of the ranking),
@@ -220,8 +197,7 @@ def _fused_pack_bwd(tiers, n, num_tiles, res, cots):
     d_packed, _d_starts = cots
     dims, _ = binning_ops.tier_dims(n, tiers)
     # Route cotangents back to tier-grid order by sorting them by slot id
-    # (measured 2.1x over gather-by-inverse-permutation and over
-    # scatter-add on TPU v5e — see _gather_sorted).
+    # (no scatter — see _gather_sorted).
     ops = (sslot,) + tuple(d_packed[i] for i in range(9))
     routed = jax.lax.sort(ops, dimension=0, num_keys=1, is_stable=True)
     dg = jnp.stack(routed[1:], axis=0)  # (9, S) in slot order
@@ -229,7 +205,7 @@ def _fused_pack_bwd(tiers, n, num_tiles, res, cots):
     d_ranked = jnp.zeros((9, n), dg.dtype)
     for (w_j, b_j, off_j) in dims:
         # T-major tier: reshape splits the MAJOR axis (free) and the
-        # per-gaussian reduction is a sublane-axis sum — ranks stay in lanes.
+        # per-gaussian reduction is a sum over that axis.
         d_tier = jnp.sum(
             dg[:, off_j: off_j + b_j * w_j].reshape(9, w_j, b_j), axis=1)
         # Nested prefixes: tier j's rows are ranks [0, b_j) — slice add
@@ -250,10 +226,9 @@ fused_pack.defvjp(_fused_pack_fwd, _fused_pack_bwd)
 def pack_features(prep, binning: binning_ops.Binning,
                   render_cfg: cfg.RenderConfig) -> jax.Array:
     """Gather per-Gaussian screen state into the kernels' (FROWS, C)
-    lane-major layout, row f = feature f of every sorted intersection (see
-    pallas_blend module docstring). Row 9 carries the owning tile id
-    (f32-exact; integer structure, no gradient). Built transpose-free: rows
-    are stacked from preprocess outputs and gathered along the minor axis."""
+    layout, row f = feature f of every sorted intersection (see
+    pallas_blend module docstring). Rows are stacked from preprocess
+    outputs and gathered along the minor axis."""
     k2 = render_cfg.max_tiles_per_gaussian
     k1 = min(render_cfg.base_tiles_per_gaussian, k2)
     feat_nt = feature_rows(prep)
@@ -261,23 +236,18 @@ def pack_features(prep, binning: binning_ops.Binning,
         feat_nt, binning.sorted_gauss, binning.sorted_slot, binning.heavy_idx,
         k1, k2,
     )  # (9, C)
-    return pack_sorted_features(feat, binning.sorted_tile)
+    return pack_sorted_features(feat)
 
 
-def pack_sorted_features(feat_t: jax.Array,
-                         sorted_tile: jax.Array) -> jax.Array:
-    """(9, C) lane-major per-intersection feature rows already in sorted
-    order + (C,) local tile ids -> the kernels' (FROWS, C) layout: append
-    the tile-id row and zero rows (pure concat, no transpose). Used directly
-    by the primitive-sharded path, where features arrive through the
-    all_to_all exchange instead of a local per-Gaussian gather."""
+def pack_sorted_features(feat_t: jax.Array) -> jax.Array:
+    """(9, C) per-intersection feature rows already in sorted order -> the
+    kernels' (FROWS, C) layout (zero rows appended). Used directly by the
+    primitive-sharded path, where features arrive through the all_to_all
+    exchange instead of a local per-Gaussian gather."""
     c = feat_t.shape[1]
-    tile_row = jax.lax.stop_gradient(sorted_tile).astype(jnp.float32)
     return jnp.concatenate(
-        [feat_t, tile_row[None, :],
-         jnp.zeros((pb.FROWS - 10, c), jnp.float32)],
-        axis=0,
-    )
+        [feat_t, jnp.zeros((pb.FROWS - feat_t.shape[0], c), jnp.float32)],
+        axis=0)
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5, 6, 7, 8))
@@ -287,9 +257,7 @@ def _blend(feat_packed, tile_starts, tile_map, grid_h, grid_w, tile_h,
         feat_packed, tile_starts, grid_h, grid_w, tile_h, tile_w, interpret,
         num_tiles=num_tiles, tile_map=tile_map,
     )
-    # Channel-first (T, 3, P) slice of the (T, 8, P) kernel output: a
-    # (T, P, 3) layout would pad its minor dim 3 -> 128 lanes in HBM (42x
-    # allocation; OOMs 4K).
+    # Channel-first (T, 3, P) slice of the (T, 8, P) kernel output.
     rgb = out[:, pb.OC_R : pb.OC_B + 1, :]
     ft = out[:, pb.OC_FT, :]
     nc = out[:, pb.OC_NC, :].astype(jnp.int32)
@@ -324,11 +292,6 @@ def _blend_bwd(grid_h, grid_w, tile_h, tile_w, interpret, num_tiles_s,
         feat_packed, tile_starts, aux, grid_h, grid_w, tile_h, tile_w,
         interpret, num_tiles=num_tiles_s, tile_map=tile_map,
     )
-    # Chunk columns past the last real segment are never written by any tile
-    # (uninitialized output memory): zero them.
-    col = jnp.arange(dfeat.shape[1], dtype=jnp.int32)
-    live_chunks = (tile_starts[-1] + pb.CHUNK - 1) // pb.CHUNK
-    dfeat = jnp.where((col < live_chunks * pb.CHUNK)[None, :], dfeat, 0.0)
     d_starts = np.zeros(tile_starts.shape, jax.dtypes.float0)
     d_map = np.zeros(tile_map.shape, jax.dtypes.float0)
     return dfeat, d_starts, d_map
@@ -344,15 +307,11 @@ def render_tiled_pallas(
     mean2d_delta=None,
 ) -> RenderOutput:
     tile_h, tile_w = render_cfg.tile_h, render_cfg.tile_w
-    if (tile_h * tile_w) % 128 != 0:
-        raise ValueError(
-            f"pallas backend requires tile_h*tile_w % 128 == 0, got "
-            f"{tile_h}x{tile_w}"
-        )
+    pb.check_tile_shape(tile_h, tile_w)
     grid_h, grid_w = render_cfg.grid_shape(camera.height, camera.width)
     num_tiles = grid_h * grid_w
     capacity = render_cfg.capacity(gaussians.means.shape[0])
-    interpret = _use_interpret()
+    interpret = render_cfg.interpret
 
     prep = preprocess(gaussians, camera, render_cfg, mean2d_delta)
     if render_cfg.tiers:

@@ -185,10 +185,8 @@ def untile(tiles: jax.Array, grid_h: int, grid_w: int,
 def untile_cf(tiles: jax.Array, grid_h: int, grid_w: int,
               render_cfg: cfg.RenderConfig, height: int,
               width: int) -> jax.Array:
-    """(T, ch, P) channel-first tiles -> (ch, height, width). Channel-first
-    keeps every intermediate lane-major (a (H, W, ch<8) array pads its minor
-    dim to 128 lanes in HBM — 42x for RGB); callers transpose to the
-    user-facing (H, W, ch) only at the API boundary."""
+    """(T, ch, P) channel-first tiles -> (ch, height, width); callers
+    transpose to the user-facing (H, W, ch) only at the API boundary."""
     th, tw = render_cfg.tile_h, render_cfg.tile_w
     ch = tiles.shape[1]
     img = tiles.reshape(grid_h, grid_w, ch, th, tw)
@@ -208,14 +206,13 @@ def render_tiled_xla(
 
     prep = preprocess(gaussians, camera, render_cfg, mean2d_delta)
     if render_cfg.tiers:
-        # Multi-tier fused structure (r4): the SAME plan the pallas path
-        # consumes, so the two backends stay bit-identical in ordering
-        # semantics (ties broken by the same stable sort of the same keys).
+        # Multi-tier fused structure (r4): the SAME plan and the same
+        # (tile, depth, gaussian id) order the pallas path consumes.
         plan = binning_ops.plan_tiers(
             jax.lax.stop_gradient(prep), grid_h, grid_w, render_cfg)
         tile, _sd, sgauss = jax.lax.sort(
             (plan.tile_key, plan.depth_key, plan.gauss), dimension=0,
-            num_keys=2, is_stable=True)
+            num_keys=3, is_stable=True)
         tile_starts = jnp.searchsorted(
             tile, jnp.arange(grid_h * grid_w + 1, dtype=jnp.int32),
             side="left").astype(jnp.int32)
@@ -224,7 +221,7 @@ def render_tiled_xla(
             # path (the fused sort was not run with it); blend_tiles_xla
             # never reads it, so store an explicitly empty array rather than
             # an identity iota a future consumer could mistake for the real
-            # permutation (ADVICE r4).
+            # permutation.
             sorted_tile=tile, sorted_gauss=sgauss,
             sorted_slot=jnp.zeros((0,), jnp.int32),
             heavy_idx=jnp.zeros((0,), jnp.int32), tile_starts=tile_starts,

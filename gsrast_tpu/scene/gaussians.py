@@ -1,6 +1,6 @@
 """Gaussian scene representation.
 
-TPU-native replacement for the reference's `SplatData` AoS loader
+The replacement for the reference's `SplatData` AoS loader
 (/root/reference/apps/gsrast/SplatData.hpp:15-69, SplatData.cpp:28-156): the
 scene is a pytree of SoA arrays storing *raw* (pre-activation) parameters —
 exactly what a trained .ply contains — with the activations the reference
@@ -9,7 +9,7 @@ SplatData.cpp:50-54) exposed as an explicit, differentiable `activated()`
 transform. Raw storage is what training needs; rendering always consumes the
 activated view.
 
-Capacity vs. count: TPU/XLA wants static shapes, so a scene may be allocated
+Capacity vs. count: XLA wants static shapes, so a scene may be allocated
 with `capacity >= N` rows and a validity mask; densification fills free slots
 and pruning releases them without reshaping (see train/densify.py).
 """
@@ -21,13 +21,15 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from ..utils.pytree import pytree_dataclass
 
 MAX_SH_DEGREE = 3
 NUM_SH_COEFFS = (MAX_SH_DEGREE + 1) ** 2  # 16
 
 
-class GaussianScene(struct.PyTreeNode):
+@pytree_dataclass
+class GaussianScene:
     """Raw (trainable) Gaussian parameters, SoA.
 
     Attributes:
@@ -98,7 +100,8 @@ class GaussianScene(struct.PyTreeNode):
         return jnp.sum(self.means * live, axis=0) / jnp.maximum(jnp.sum(live), 1.0)
 
 
-class ActivatedGaussians(struct.PyTreeNode):
+@pytree_dataclass
+class ActivatedGaussians:
     """Render-ready view of a scene (post-activation)."""
 
     means: jax.Array

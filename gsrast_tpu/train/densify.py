@@ -2,7 +2,7 @@
 
 Capability add over the reference (no training at all, SURVEY.md §2.3);
 BASELINE config 4 requires the full 3DGS adaptive-density schedule. The
-TPU-native twist: XLA needs static shapes, so the scene lives in a
+Static-shape twist: XLA needs static shapes, so the scene lives in a
 fixed-capacity SoA with a validity mask (scene/gaussians.py) and all
 densify/prune operations are pure functions that move Gaussians between live
 and dead slots with masked scatter — no reallocation, fully jittable.

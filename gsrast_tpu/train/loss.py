@@ -3,7 +3,7 @@
 Capability add over the reference (which is a forward-only viewer with no
 training, SURVEY.md §0); demanded by BASELINE config 4. SSIM follows the
 standard 11x11 Gaussian-window formulation, implemented as depthwise
-convolutions that XLA fuses onto the TPU convolution units.
+convolutions.
 """
 
 from __future__ import annotations

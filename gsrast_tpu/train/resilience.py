@@ -2,7 +2,7 @@
 
 The reference prints errors to stderr and limps on (SURVEY.md §5: "errors
 print ... with '?' and the app limps on", e.g. ShaderBase.cpp:8-10); a
-production TPU training system needs real failure handling — TPU pods preempt,
+production training system needs real failure handling — jobs get preempted,
 kernels can emit NaNs, hosts die. This module provides the single-host pieces
 that compose with jax.distributed for multi-host (parallel/mesh.py
 initialize_distributed is the pod bootstrap/barrier):
@@ -10,7 +10,7 @@ initialize_distributed is the pod bootstrap/barrier):
   * NaN/Inf step detection with automatic rollback to the last good
     checkpoint (poisoned updates never reach the persisted state);
   * preemption handling: SIGTERM/SIGINT trigger a final checkpoint before
-    exit (the TPU-pod eviction contract);
+    exit (the usual cluster eviction contract);
   * heartbeat file: periodic {step, time, pid} JSON an external supervisor
     (or another host over DCN) can watch for liveness;
   * fault injection hooks for tests — deliberate NaN at step k, simulated

@@ -1,6 +1,6 @@
 """Nested render-target composition.
 
-TPU-native analog of the reference's Framebuffer system
+The analog of the reference's Framebuffer system
 (/root/reference/Framebuffer.cpp:22-107 and the global viewport/FBO stacks,
 Config.hpp:33-44): where the reference renders children into an offscreen GL
 texture (pushing/popping viewport state so targets nest) and then draws that

@@ -2,7 +2,7 @@
 
 The reference's observability is an FPS plot and a dt table
 (/root/reference/apps/gsrast/Inspector.cpp:142-165, Window.cpp:104-108); this
-module provides the TPU-grade equivalents SURVEY.md §5 calls for:
+module provides the device-level equivalents SURVEY.md §5 calls for:
 
   * `trace(logdir)`            — jax.profiler device trace (Perfetto/XProf),
                                  the analog of watching the FPS plot live;
@@ -25,7 +25,7 @@ import jax
 
 
 @contextlib.contextmanager
-def trace(logdir: str = "/tmp/gsrast_trace", create_perfetto_link: bool = False):
+def trace(logdir: str = "gsrast_trace", create_perfetto_link: bool = False):
     """Capture a device trace around a code block; view in XProf/Perfetto."""
     jax.profiler.start_trace(logdir, create_perfetto_link=create_perfetto_link)
     try:

@@ -1,6 +1,6 @@
 """Analytic-ellipsoid ray-trace debug renderer (reference mode 2).
 
-TPU-native analog of GSEllipsoids (/root/reference/apps/gsrast/
+The analog of GSEllipsoids (/root/reference/apps/gsrast/
 GSEllipsoids.cpp + shaders/splats/fragment.glsl:30-83): each Gaussian drawn
 as an opaque ellipsoid at 2x scale, per-pixel analytic ray-ellipsoid
 intersection with exact depth, alpha-culled below 0.3 — the same semantics as

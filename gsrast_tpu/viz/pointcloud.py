@@ -1,6 +1,6 @@
 """Point-cloud debug renderer (reference mode 1).
 
-The TPU-native analog of GSPointCloud (/root/reference/apps/gsrast/
+The analog of GSPointCloud (/root/reference/apps/gsrast/
 GSPointCloud.cpp:19-48 + shaders/pointcloud/*.glsl): splat centers as
 fixed-size points, z-tested, colored 0.2 * SH-DC + 0.5 exactly like the GL
 vertex shader (pointcloud/vertex.glsl:13-15). Instead of GL_POINTS we

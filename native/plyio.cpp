@@ -1,10 +1,10 @@
 // Native scene-format codec: fast binary PLY vertex reader/writer.
 //
-// TPU-native analog of the reference's bulk RichPoint loader
+// The analog of the reference's bulk RichPoint loader
 // (/root/reference/apps/gsrast/SplatData.cpp:114-156): where the reference
 // does one fread of N*sizeof(RichPoint) into an AoS vector, this library
 // parses the header, then performs a single pass AoS->SoA de-interleave into
-// caller-provided column buffers (the layout the TPU pipeline wants), using
+// caller-provided column buffers (the layout the JAX pipeline wants), using
 // memcpy-per-field over a stack-allocated stride table. Exposed to Python
 // through ctypes (gsrast_tpu/scene/native.py); no pybind11 dependency.
 //

@@ -1,4 +1,5 @@
-"""Micro-benchmark of sort strategies for the binning stage on TPU."""
+"""Micro-benchmark of sort strategies for the binning stage on the current
+backend."""
 import os
 import sys
 import time

@@ -1,6 +1,4 @@
-"""One-command regeneration of the >=1M trained bench fixture (VERDICT r4
-weak #5: the trained-1M row must be re-verifiable without hand-running the
-training recipe).
+"""One-command regeneration of the >=1M trained bench fixture.
 
 Runs the framework's own end-to-end pipeline:
   1. make-dataset: render a 16-view orbit of a random 1M scene at 800x800;
@@ -10,7 +8,7 @@ Runs the framework's own end-to-end pipeline:
      BASELINE config-3 scale (the scene used by the config-3 rows in
      BASELINE.md).
 
-    python scripts/make_trained_fixture.py --out /tmp/gsrast_fixtures \
+    python scripts/make_trained_fixture.py --out .smoke/fixtures \
         [--steps 700] [--small]   # --small: 120k-scale smoke variant
 
 Determinism note: training uses fixed seeds, but kernel scheduling makes the
@@ -30,7 +28,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="/tmp/gsrast_fixtures")
+    ap.add_argument("--out", default=".smoke/fixtures")
     ap.add_argument("--steps", type=int, default=700)
     ap.add_argument("--small", action="store_true",
                     help="120k-scale smoke variant (fast)")

@@ -1,6 +1,6 @@
 """Multi-HOST smoke: 2 real processes, jax.distributed, one global mesh.
 
-Exercises the actual multi-host path (VERDICT r3 missing #4): the CLI's
+Exercises the actual multi-host path: the CLI's
 --dist parsing -> parallel.mesh.initialize_distributed ->
 jax.distributed.initialize on a localhost coordinator, a mesh spanning BOTH
 processes' devices, one psum across it, and one tiny tile-sharded render.
@@ -51,7 +51,6 @@ def main():
     assert n_global == args.nprocs * n_local, (n_global, n_local)
 
     import jax.numpy as jnp
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import PartitionSpec as P
 
     from gsrast_tpu import Camera, RenderConfig, random_scene
@@ -65,7 +64,7 @@ def main():
     def f(x):
         return jax.lax.psum(x, TILE_AXIS)
 
-    y = jax.jit(shard_map(
+    y = jax.jit(jax.shard_map(
         f, mesh=mesh, in_specs=(P(TILE_AXIS),), out_specs=P(TILE_AXIS)
     ))(jnp.ones((n_global,), jnp.float32))
     total = float(jax.device_get(y.addressable_shards[0].data)[0])

@@ -21,15 +21,16 @@ def main():
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
-    ap.add_argument("--tile-h", type=int, default=8)
-    ap.add_argument("--tile-w", type=int, default=128)
+    ap.add_argument("--tile-h", type=int, default=16)
+    ap.add_argument("--tile-w", type=int, default=16)
     args = ap.parse_args()
 
     from gsrast_tpu import benchmark
     from gsrast_tpu.ops import binning as binning_ops
     from gsrast_tpu.ops.preprocess import preprocess
+    from gsrast_tpu.utils.compile_cache import enable_compile_cache
 
-    benchmark.enable_compile_cache()
+    enable_compile_cache()
     rcfg = benchmark.bench_config("xla").replace(
         tile_h=args.tile_h, tile_w=args.tile_w)
     scene, camera = benchmark.bench_scene_camera(

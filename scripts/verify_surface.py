@@ -1,19 +1,28 @@
 """End-to-end library-surface drive: ply -> scene -> render (3 modes) -> PNG,
-pose store round-trip, inspector report. Run on whatever backend JAX picks."""
+pose store round-trip, inspector report, on the platform JAX picks (the
+compiled kernels on a GPU, the XLA path on the CPU). Writes under the
+repository's `.smoke/verify_surface/`."""
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-import sys, os, tempfile
-import jax, jax.numpy as jnp
+import os
+import shutil
+
+import jax
 
 import gsrast_tpu as gs
+from gsrast_tpu.render.api import default_backend
+from gsrast_tpu.utils.compile_cache import REPO_CACHE_DIR, enable_compile_cache
 from gsrast_tpu.utils import image, inspector, posedb
 from gsrast_tpu.viz.pointcloud import render_pointcloud
 from gsrast_tpu.viz.ellipsoids import render_ellipsoids
 
+enable_compile_cache()
 print("backend:", jax.default_backend(), jax.devices()[:1])
 
-tmp = tempfile.mkdtemp()
+tmp = str(REPO_CACHE_DIR.parent / ".smoke" / "verify_surface")
+shutil.rmtree(tmp, ignore_errors=True)
+os.makedirs(tmp)
 scene0 = gs.random_scene(jax.random.PRNGKey(0), 2000, sh_degree=3,
                          scale_range=(0.01, 0.04))
 ply_path = os.path.join(tmp, "scene.ply")
@@ -25,7 +34,7 @@ print("native codec used:", native.available())
 
 mn, mx = scene.bbox()
 cam = gs.auto_frame(mn, mx, 512, 256)
-cfg = gs.RenderConfig(backend="pallas" if jax.default_backend() == "tpu" else "xla",
+cfg = gs.RenderConfig(backend=default_backend(),
                       intersect_capacity_factor=16.0, background=(0.05, 0.05, 0.08))
 out = gs.render(scene, cam, cfg)
 print("gaussian mode: image", out.image.shape, "mean", float(out.image.mean()),

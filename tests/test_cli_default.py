@@ -1,6 +1,6 @@
 """The CLI's default render path IS the flagship fused multi-tier path.
 
-VERDICT r4 #3: `python -m gsrast_tpu render/train` must run
+`python -m gsrast_tpu render/train` must run
 plan_tiers/fused_pack with auto-derived tiers — not the legacy two-tier
 path with hand-set K. These tests pin that: the auto config carries a
 non-empty tier spec, and the CLI's PNG equals a direct render through the

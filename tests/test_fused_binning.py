@@ -32,7 +32,8 @@ def make_camera(w=256, h=128):
 
 def base_cfg(**kw):
     d = dict(
-        backend="pallas", tile_h=8, tile_w=32, max_tiles_per_gaussian=64,
+        backend="pallas", interpret=True, tile_h=8, tile_w=32,
+        max_tiles_per_gaussian=64,
         heavy_fraction=0.5, intersect_capacity_factor=16.0, max_per_tile=4096,
     )
     d.update(kw)

@@ -1,5 +1,4 @@
-"""Heavy-tile validation against an UNCAPPED oracle (VERDICT r3 missing #6 /
-next #7): the tiled-XLA oracle truncates per-tile work at max_per_tile and
+"""Heavy-tile validation against an UNCAPPED oracle: the tiled-XLA oracle truncates per-tile work at max_per_tile and
 r3's assert_comparable therefore REFUSES heavy scenes; the dense per-pixel
 oracle (render/dense.py) has no cap at all, so genuinely heavy tiles can be
 *validated*, not just refused. The Pallas path walks true ranges uncapped —
@@ -35,7 +34,7 @@ def camera():
 
 
 CFG = RenderConfig(
-    backend="pallas", tile_h=8, tile_w=16, max_per_tile=256,
+    backend="pallas", interpret=True, tile_h=8, tile_w=16, max_per_tile=256,
     intersect_capacity_factor=64.0, tile_chunk=2,
     tiers=((4, 1.0), (16, 1.0), (64, 0.5), (2560, 0.25)),
     background=(0.1, 0.2, 0.3),

@@ -1,6 +1,7 @@
-"""Pallas blend kernel pair vs the XLA oracle (interpret mode on CPU;
-the same kernels compile to Mosaic on TPU). Gradcheck of the hand-derived
-backward against jax.grad of the XLA path (SURVEY.md §4 tier 3)."""
+"""Pallas blend kernel pair vs the XLA oracle, in interpret mode on the CPU
+(tests/test_gpu_kernels.py runs them compiled on a GPU). Gradcheck of the
+hand-derived backward against jax.grad of the XLA path (SURVEY.md §4 tier
+3); the platform -> backend choice and the kernels' shape guards."""
 
 import jax
 import jax.numpy as jnp
@@ -9,6 +10,8 @@ import pytest
 
 from gsrast_tpu import Camera, RenderConfig, random_scene
 from gsrast_tpu.camera import look_at
+from gsrast_tpu.render import pallas_blend as pb
+from gsrast_tpu.render.api import default_backend
 from gsrast_tpu.render.pallas_pipeline import render_tiled_pallas
 from gsrast_tpu.render.tiled import render_tiled_xla
 from gsrast_tpu.scene.gaussians import merge_params, split_params
@@ -30,6 +33,7 @@ def pallas_cfg(**kw):
         tile_chunk=4,
         intersect_capacity_factor=32.0,
         background=(0.1, 0.2, 0.3),
+        interpret=True,
     )
     base.update(kw)
     return RenderConfig(**base)
@@ -83,18 +87,17 @@ class TestPallasForward:
         np.testing.assert_allclose(pal.image, xla.image, atol=3e-6)
 
 
-class TestPixelSplit:
-    """P > 1024 tiles run the kernels' pixel-slice path (psplit=2, r5):
+class TestLargeTiles:
+    """Tiles up to MAX_TILE_PIXELS (four pixels a thread in the forward):
     image, final_t, n_contrib and gradients must match the XLA oracle
-    exactly like the single-slice path does."""
+    exactly like the default 16x16 tile does."""
 
-    def test_psplit2_forward_and_grads(self, scene_aniso):
-        cam = make_camera(128, 64)  # 2x2 grid of 32x64 tiles (P=2048)
-        cfg = pallas_cfg(tile_h=32, tile_w=64,
+    @pytest.mark.parametrize("tile", [(32, 32), (8, 128)])
+    def test_large_tile_forward_and_grads(self, scene_aniso, tile):
+        cam = make_camera(128, 64)
+        cfg = pallas_cfg(tile_h=tile[0], tile_w=tile[1],
                          tiers=((2, 1.0), (8, 0.5), (32, 0.25)))
-        from gsrast_tpu.render.pallas_blend import _psplit
-
-        assert _psplit(cfg.tile_h * cfg.tile_w) == 2
+        assert cfg.tile_h * cfg.tile_w == pb.MAX_TILE_PIXELS
         xla = render_tiled_xla(scene_aniso.activated(), cam, cfg)
         pal = render_tiled_pallas(scene_aniso.activated(), cam, cfg)
         np.testing.assert_allclose(pal.image, xla.image, atol=3e-6)
@@ -117,7 +120,7 @@ class TestPixelSplit:
             scale = max(float(jnp.max(jnp.abs(b))), 1e-8)
             np.testing.assert_allclose(
                 a / scale, b / scale, atol=2e-5,
-                err_msg=f"psplit=2 grad mismatch: {name}")
+                err_msg=f"{tile} tile grad mismatch: {name}")
 
 
 class TestPallasBackward:
@@ -145,3 +148,36 @@ class TestPallasBackward:
                 err_msg=f"pallas grad mismatch: {name}",
             )
             assert float(jnp.max(jnp.abs(a))) > 0.0, f"zero pallas grad: {name}"
+
+
+class TestBackendChoice:
+    @pytest.mark.parametrize("platform,backend", [
+        ("gpu", "pallas"), ("cpu", "xla"), ("metal", None), ("rocm", None)])
+    def test_platform_to_backend(self, platform, backend):
+        if backend is None:
+            with pytest.raises(ValueError, match="no render backend"):
+                default_backend(platform)
+        else:
+            assert default_backend(platform) == backend
+
+    def test_current_platform(self):
+        assert default_backend() == "xla"  # the test suite runs on the CPU
+
+    @pytest.mark.parametrize("fn", ["blend_forward", "blend_backward"])
+    def test_gpu_never_interprets(self, monkeypatch, fn):
+        """The kernels refuse interpret=True where they would run compiled;
+        nothing infers interpret from the platform."""
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        feat = jnp.zeros((pb.FROWS, 128), jnp.float32)
+        starts = jnp.zeros((2,), jnp.int32)
+        args = (feat, starts)
+        if fn == "blend_backward":
+            args += (jnp.zeros((1, 8, 256), jnp.float32),)
+        with pytest.raises(ValueError, match="interpret"):
+            getattr(pb, fn)(*args, 1, 1, 16, 16, interpret=True)
+        assert not RenderConfig().interpret
+
+    @pytest.mark.parametrize("tile", [(16, 24), (12, 16), (64, 32)])
+    def test_tile_shape_guard(self, tile):
+        with pytest.raises(ValueError):
+            pb.check_tile_shape(*tile)

@@ -24,9 +24,9 @@ pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
 )
 
-CFG = RenderConfig(max_per_tile=256, tile_chunk=2,
+CFG = RenderConfig(tile_h=8, tile_w=128, max_per_tile=256, tile_chunk=2,
                    intersect_capacity_factor=16.0,
-                   background=(0.05, 0.1, 0.15))
+                   background=(0.05, 0.1, 0.15), interpret=True)
 
 
 def make_camera(w=256, h=16):
@@ -45,7 +45,7 @@ def scene():
 
 @pytest.fixture(scope="module")
 def corner_scene():
-    """Deliberately skewed load (VERDICT r2 #9): every Gaussian concentrated
+    """Deliberately skewed load: every Gaussian concentrated
     in one screen corner, so one device's tile rows carry ~all of the work
     under contiguous ownership and the send buckets skew hard under
     primitive sharding."""
@@ -180,7 +180,7 @@ class TestTileSharded:
 
 class TestPrimitiveSharded:
     """The all-to-all key-exchange path: Gaussians sharded over the mesh
-    (SURVEY §2.5 'the renderer's TP'; VERDICT r1 missing #2)."""
+    (SURVEY §2.5 'the renderer's TP')."""
 
     @pytest.mark.parametrize("backend", ["xla", "pallas"])
     def test_matches_single_device(self, scene, backend):

@@ -1,7 +1,8 @@
-"""Fused multi-tier binning on the tile-sharded path (r4, VERDICT r3 #2):
-sharded preprocess + all_gather, device-scaled tiers, per-device sort volume
-~S/D. Checks image + gradient agreement with the single-device fused render
-and with the legacy sharded path's semantics on the 8-virtual-device mesh."""
+"""Fused multi-tier binning on the sharded paths: sharded preprocess and
+exchange, per-device tier specs (shard_tiers), and one blend order, (tile,
+depth, gaussian id), on every path. Checks image + gradient agreement with
+the single-device fused render on the 8-virtual-device mesh, including a
+scene full of equal depths."""
 
 import jax
 import jax.numpy as jnp
@@ -23,10 +24,10 @@ pytestmark = pytest.mark.skipif(
 )
 
 TIERS = ((2, 1.0), (4, 1.0), (8, 0.5), (32, 0.25))
-CFG = RenderConfig(max_per_tile=512, tile_chunk=2,
+CFG = RenderConfig(tile_h=8, tile_w=128, max_per_tile=512, tile_chunk=2,
                    intersect_capacity_factor=16.0,
                    background=(0.05, 0.1, 0.15), tiers=TIERS,
-                   backend="pallas")
+                   backend="pallas", interpret=True)
 
 
 def make_camera(w=256, h=64):
@@ -43,18 +44,17 @@ def scene():
 
 
 class TestShardTiers:
-    def test_widths_shrink_budgets_survive(self):
+    def test_widths_and_budgets_kept(self):
+        """Per-device widths stay the single-device widths (a small splat
+        keeps its whole tile count on the device owning its rows), budgets
+        survive, and tier 0 takes every received gaussian."""
         td = shard_tiers(TIERS, 8)
-        ks = [k for k, _ in td]
-        assert ks == sorted(ks)
-        assert ks[-1] < TIERS[-1][0]  # widths shrink with D
-        # tier 0 keeps its FULL budget (nearly every visible gaussian owns
-        # >= 1 tile on every device under interleaved rows; trimming it
-        # dropped real work at dryrun scale) — the shrink comes from widths.
+        assert [k for k, _ in td] == [k for k, _ in TIERS]
+        assert [f for _, f in td[1:]] == [f for _, f in TIERS[1:]]
         assert td[0][1] >= 1.0
-        dims_1, s1 = tier_dims(10_000, TIERS)
-        dims_8, s8 = tier_dims(10_000, td)
-        assert s8 < s1 / 2  # per-device slot volume actually shrinks
+        _, s1 = tier_dims(10_000, TIERS)
+        _, s8 = tier_dims(10_000, td)
+        assert s8 == s1
 
     def test_single_device_identity(self):
         assert shard_tiers(TIERS, 1) == TIERS
@@ -104,7 +104,7 @@ class TestFusedTileSharded:
 
     def test_eight_device_skew(self, scene):
         """Corner-concentrated scene on the full 8-device tile mesh:
-        interleaved ownership + device-scaled tiers stay exact (zero counted
+        interleaved ownership + per-device tiers stay exact (zero counted
         drops) and match single-device."""
         s = scene.replace(means=scene.means * 0.12
                           + jnp.array([-0.9, -0.35, 0.0]))
@@ -120,7 +120,7 @@ class TestFusedTileSharded:
             np.asarray(out.image), np.asarray(ref.image), atol=2e-5)
 
 class TestFusedPrimitiveSharded:
-    """r5 (VERDICT r4 #5): the primitive-sharded exchange binned by the
+    """r5: the primitive-sharded exchange binned by the
     multi-tier route grid (dest-prefixed keys, ONE 2-key sort) instead of
     the searchsorted expansion."""
 
@@ -209,3 +209,67 @@ class TestTrainStepFused:
             for a, b in zip(jax.tree.leaves(new_params),
                             jax.tree.leaves(params)))
         assert moved
+
+
+@pytest.fixture(scope="module")
+def tie_scene(scene):
+    """Means on a few depth planes: the axis-aligned camera then gives
+    whole groups of gaussians bit-identical depths, so the blend order of
+    equal depths decides the image."""
+    return scene.replace(
+        means=scene.means.at[:, 2].set(jnp.round(scene.means[:, 2] * 2) / 2))
+
+
+class TestEqualDepthOrder:
+    """Every path blends equal depths in gaussian-id order, so sharding
+    cannot reorder them (a per-device slot order did, by up to 0.28 here)."""
+
+    @pytest.mark.parametrize("backend", ["xla", "pallas"])
+    @pytest.mark.parametrize("path", ["tile", "primitive"])
+    def test_sharded_render_matches(self, tie_scene, backend, path):
+        camera = make_camera()
+        mesh = make_mesh((1, 4), jax.devices()[:4])
+        cfg = CFG.replace(backend=backend)
+        ref = render(tie_scene.activated(), camera, cfg)
+        if path == "tile":
+            fn = lambda a: render_tile_sharded(a, camera, cfg, mesh)
+            act = tie_scene.activated()
+        else:
+            fn = lambda a: render_primitive_sharded(
+                a, camera, cfg, mesh, send_capacity=4096)
+            act = pad_gaussians(tie_scene.activated(), 4)
+        out = jax.jit(fn)(act)
+        np.testing.assert_allclose(
+            np.asarray(out.image), np.asarray(ref.image), atol=2e-5)
+
+    def test_backends_agree(self, tie_scene):
+        camera = make_camera()
+        imgs = [np.asarray(render(tie_scene.activated(), camera,
+                                  CFG.replace(backend=b)).image)
+                for b in ("xla", "pallas")]
+        np.testing.assert_allclose(imgs[0], imgs[1], atol=2e-5)
+
+    @pytest.mark.parametrize("backend", ["xla", "pallas"])
+    def test_train_step_gradients_match(self, tie_scene, backend):
+        """(2, 2) data x tile mesh against (1, 1): same loss and
+        gradients."""
+        camera = make_camera()
+        params, mask = split_params(tie_scene)
+        cams = jax.tree.map(lambda x: jnp.broadcast_to(x, (2,) + x.shape),
+                            camera)
+        tgts = jnp.full((2, camera.height, camera.width, 3), 0.25,
+                        jnp.float32)
+        res = []
+        for shape in ((2, 2), (1, 1)):
+            mesh = make_mesh(shape, jax.devices()[:shape[0] * shape[1]])
+            step = make_sharded_train_step(
+                CFG, mesh, camera.height, camera.width,
+                cameras_per_device=2 // shape[0], backend=backend)
+            _, _, loss, grads = jax.jit(step)(params, mask, None, cams, tgts)
+            res.append((float(loss), grads))
+        (l4, g4), (l1, g1) = res
+        np.testing.assert_allclose(l4, l1, rtol=1e-5)
+        for k in g1:
+            np.testing.assert_allclose(
+                np.asarray(g4[k]), np.asarray(g1[k]), atol=2e-4, rtol=1e-4,
+                err_msg=k)
